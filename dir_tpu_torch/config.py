@@ -1,0 +1,72 @@
+"""Model configuration of the PyTorch port.
+
+A copy of ``dir_tpu.config.ModelConfig`` (same fields, same defaults), so
+that the port never imports the JAX package. ``DataConfig`` and
+``TrainConfig`` come with the data and training slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """DIR network hyperparameters (reference: models/dir.py:389-502)."""
+
+    joint_num: int = 21
+    num_verts: int = 778
+    # Backbone pyramid channel dims (ResNet-50): c1..c4.
+    backbone: str = "resnet50"
+    backbone_layers: Tuple[int, int, int, int] = (3, 4, 6, 3)
+    # Stem variant: only "conv7" (torchvision layout) is ported so far.
+    backbone_stem: str = "conv7"
+    backbone_dims: Tuple[int, int, int, int] = (256, 512, 1024, 2048)
+    # Decoder feature dims per stage.
+    decoder_dim: int = 256
+    # Joint token embedding dim inside each refinement stage.
+    embed_dim: int = 128
+    # Per-joint output feature dim of the interaction transformer.
+    joint_dim: int = 64
+    # Bone-splat distance thresholds per refinement stage.
+    stage_distances: Tuple[float, ...] = (1.0, 2.0)
+    # MANO parameter vector: 6 (root 6D) + 45 (PCA pose) + 10 (shape) + 3 (cam).
+    mano_ncomps: int = 45
+    mano_param_dim: int = 6 + 45 + 10 + 3
+    # STE transformer; blocks 1..depth-1 execute, block 0 is never built.
+    ste_depth: int = 4
+    ste_heads: int = 4
+    ste_mlp_ratio: float = 2.0
+    gcn_layers: int = 4
+    # Index of the joint used to center MANO output (0 = wrist).
+    root_joint: int = 0
+    # Compute dtype of the conv/transformer trunk ("float32" | "bfloat16").
+    # MANO, geometry and the parameter heads always run fp32.
+    dtype: str = "float32"
+    # Bone-splat kernel on the materialized splat path (not ported yet).
+    use_pallas_splat: bool = False
+    # Inference-only fused bottleneck kernel for the 64x64 backbone
+    # blocks (ops/fused_bottleneck.py); same parameters either way.
+    fused_bottleneck_eval: bool = False
+    # Int8 serving options (not ported yet).
+    quant_backbone_eval: bool = False
+    quant_decoder_eval: bool = False
+    quant_aux_eval: bool = False
+    quant_static: bool = False
+    # MANO contraction precision of the JAX package; the port always
+    # runs MANO in full fp32.
+    mano_precision: str = "highest"
+    # Factored 3x3 fusion conv through the rank-1 splat structure.
+    fused_splat_conv: bool = True
+    bone_num: int = 20
+    # Loss weights.
+    coord_weight: float = 10.0
+    dense_weight: float = 1.0
+    seg_weight: float = 0.1
+    lovasz_weight: float = 0.1
+    normal_weight: float = 0.1
+    edge_weight: float = 1.0
+    seg_class_weights: Tuple[float, float, float] = (0.1, 0.45, 0.45)
+    # Scale normalization constant for xyz-space embeddings.
+    coord_scale: float = 0.15

@@ -1,0 +1,208 @@
+"""Weight bridge: the JAX package's ``params``/``batch_stats`` trees (nested
+dicts of numpy arrays) -> the port's ``state_dict``.
+
+The port's own copy of the mapping table of the reference torch layout
+(``dir_tpu/train/checkpoint.py:dir_mapping``) and of its inverse
+transforms, so that ``DIR.load_state_dict(..., strict=True)`` takes the
+result. Leaves absent from the trees (Residual skip convs of same-width
+blocks) are skipped; STE block 0 is not in the table.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+
+class Entry(NamedTuple):
+    torch_key: str          # state_dict key
+    path: Tuple[str, ...]   # path in the JAX tree
+    kind: str               # transform kind
+    collection: str         # "params" | "batch_stats"
+
+
+def _conv2d(tkey, path, bias=True):
+    out = [Entry(f"{tkey}.weight", path + ("kernel",), "conv2d", "params")]
+    if bias:
+        out.append(Entry(f"{tkey}.bias", path + ("bias",), "raw", "params"))
+    return out
+
+
+def _dense(tkey, path):
+    return [Entry(f"{tkey}.weight", path + ("kernel",), "linear", "params"),
+            Entry(f"{tkey}.bias", path + ("bias",), "raw", "params")]
+
+
+def _conv1d_dense(tkey, path):
+    return [Entry(f"{tkey}.weight", path + ("kernel",), "conv1d_dense",
+                  "params"),
+            Entry(f"{tkey}.bias", path + ("bias",), "raw", "params")]
+
+
+def _bn(tkey, path):
+    return [
+        Entry(f"{tkey}.weight", path + ("scale",), "raw", "params"),
+        Entry(f"{tkey}.bias", path + ("bias",), "raw", "params"),
+        Entry(f"{tkey}.running_mean", path + ("mean",), "raw", "batch_stats"),
+        Entry(f"{tkey}.running_var", path + ("var",), "raw", "batch_stats"),
+    ]
+
+
+def _ln(tkey, path):
+    return [Entry(f"{tkey}.weight", path + ("scale",), "raw", "params"),
+            Entry(f"{tkey}.bias", path + ("bias",), "raw", "params")]
+
+
+def _residual(tpre, fpre):
+    out = []
+    for i in (1, 2, 3):
+        out += _bn(f"{tpre}.bn{i}", fpre + (f"bn{i}",))
+        out += _conv2d(f"{tpre}.conv{i}.conv", fpre + (f"conv{i}",))
+    return out + _conv2d(f"{tpre}.skip_layer.conv", fpre + ("skip",))
+
+
+def _mlp1d(tpre, fpre):
+    return (_conv1d_dense(f"{tpre}.0", fpre + ("fc1",))
+            + _bn(f"{tpre}.1", fpre + ("bn",))
+            + _conv1d_dense(f"{tpre}.3", fpre + ("fc2",)))
+
+
+def _bottleneck(tpre, fpre, has_down):
+    out = []
+    for i in (1, 2, 3):
+        out += _conv2d(f"{tpre}.conv{i}", fpre + (f"conv{i}",), bias=False)
+        out += _bn(f"{tpre}.bn{i}", fpre + (f"bn{i}",))
+    if has_down:
+        out += _conv2d(f"{tpre}.downsample.0", fpre + ("down_conv",),
+                       bias=False)
+        out += _bn(f"{tpre}.downsample.1", fpre + ("down_bn",))
+    return out
+
+
+def _resnet(layers):
+    out = _conv2d("backbone.conv1", ("backbone", "conv1"), bias=False)
+    out += _bn("backbone.bn1", ("backbone", "bn1"))
+    for s, blocks in enumerate(layers):
+        for b in range(blocks):
+            out += _bottleneck(f"backbone.layer{s + 1}.{b}",
+                               ("backbone", f"layer{s + 1}_{b}"),
+                               has_down=b == 0)
+    return out
+
+
+def _gcn(tpre, fpre, num_layers=4):
+    out = []
+    for i in range(num_layers):
+        g = f"{tpre}.gconv_layers.{i}"
+        f = fpre + (f"layer{i}",)
+        out += [
+            Entry(f"{g}.gconv.W", f + ("gconv", "w"), "raw", "params"),
+            Entry(f"{g}.gconv.e_0", f + ("gconv", "e0"), "squeeze0",
+                  "params"),
+            Entry(f"{g}.gconv.e_1", f + ("gconv", "e1"), "squeeze0",
+                  "params"),
+            Entry(f"{g}.gconv.bias", f + ("gconv", "bias"), "raw", "params"),
+        ]
+        out += _bn(f"{g}.bn", f + ("bn",))
+    return out
+
+
+def _ste(tpre, fpre, depth=4):
+    out = [Entry(f"{tpre}.spatial_pos_embed", fpre + ("spatial_pos_embed",),
+                 "raw", "params")]
+    for i in range(1, depth):
+        b = f"{tpre}.STEblocks.{i}"
+        f = fpre + (f"block{i}",)
+        out += _ln(f"{b}.norm1", f + ("norm1",))
+        out += _dense(f"{b}.attn.qkv", f + ("attn", "qkv"))
+        out += _dense(f"{b}.attn.proj", f + ("attn", "proj"))
+        out += _ln(f"{b}.norm2", f + ("norm2",))
+        out += _dense(f"{b}.mlp.fc1", f + ("mlp", "fc1"))
+        out += _dense(f"{b}.mlp.fc2", f + ("mlp", "fc2"))
+    out += _ln(f"{tpre}.spatial_norm", fpre + ("spatial_norm",))
+    out += _ln(f"{tpre}.head.0", fpre + ("head_norm",))
+    out += _dense(f"{tpre}.head.1", fpre + ("head",))
+    return out
+
+
+def _head(tpre, fpre):
+    return (_conv2d(f"{tpre}.0", fpre + ("conv1",))
+            + _bn(f"{tpre}.1", fpre + ("bn",))
+            + _conv2d(f"{tpre}.3", fpre + ("conv2",)))
+
+
+def _refine_stage(tpre, fpre):
+    out = []
+    for side in ("left", "right"):
+        out += _mlp1d(f"{tpre}.img2joint_{side}.filters",
+                      fpre + (f"img2joint_{side}", "filters"))
+        out += _mlp1d(f"{tpre}.pos_emb_{side}", fpre + (f"pos_emb_{side}",))
+        out += _gcn(f"{tpre}.gcn_{side}", fpre + (f"gcn_{side}",))
+    out += _mlp1d(f"{tpre}.global_pos_emb", fpre + ("global_pos_emb",))
+    out += _ste(f"{tpre}.interaction", fpre + ("interaction",))
+    out += _mlp1d(f"{tpre}.proj_feat_emb", fpre + ("proj_feat_emb",))
+    out += _conv2d(f"{tpre}.fusion.0", fpre + ("fusion_conv1",))
+    out += _bn(f"{tpre}.fusion.1", fpre + ("fusion_bn",))
+    out += _conv2d(f"{tpre}.fusion.3", fpre + ("fusion_conv2",))
+    for name in ("mano_left", "mano_right", "offset"):
+        out += _dense(f"{tpre}.regressor.{name}", fpre + ("regressor", name))
+    return out
+
+
+def dir_mapping(backbone_layers=(3, 4, 6, 3)) -> List[Entry]:
+    """Every (torch key, JAX path, transform) pair of the DIR model."""
+    out = _resnet(backbone_layers)
+    for side in ("left", "right"):
+        out += _head(f"init_regressor.attention_{side}",
+                     ("init_regressor", f"attention_{side}"))
+        out += _dense(f"init_regressor.mano_{side}",
+                      ("init_regressor", f"mano_{side}"))
+    out += _dense("init_regressor.offset", ("init_regressor", "offset"))
+    d = ("decoder",)
+    for res in ("skip_layer4", "fusion_layer4", "enhance_layer4",
+                "skip_layer3", "fusion_layer3", "enhance_layer3"):
+        out += _residual(f"decoder.{res}", d + (res,))
+    out += _refine_stage("decoder.projecter_4", d + ("projecter_4",))
+    out += _refine_stage("decoder.projecter_3", d + ("projecter_3",))
+    out += _conv2d("decoder.conv_final.0", d + ("final_conv1",), bias=False)
+    out += _bn("decoder.conv_final.1", d + ("final_bn",))
+    out += _conv2d("decoder.conv_final.3", d + ("final_conv2",))
+    out += _head("decoder.seg", d + ("seg",))
+    out += _head("decoder.dense", d + ("dense",))
+    return out
+
+
+# JAX layout -> torch layout.
+_INV = {
+    "raw": lambda w: w,
+    "conv2d": lambda w: np.transpose(w, (3, 2, 0, 1)),
+    "linear": lambda w: np.transpose(w, (1, 0)),
+    "conv1d_dense": lambda w: np.transpose(w, (1, 0))[:, :, None],
+    "squeeze0": lambda w: w[None],
+}
+
+
+def _get(tree: dict, path: Tuple[str, ...]):
+    node = tree
+    for k in path:
+        if not isinstance(node, dict) or k not in node:
+            return None
+        node = node[k]
+    return node
+
+
+def jax_to_state_dict(params: dict, batch_stats: dict,
+                      backbone_layers=(3, 4, 6, 3)) -> Dict[str, torch.Tensor]:
+    """JAX ``params``/``batch_stats`` trees -> the port's ``state_dict``
+    (CPU tensors, same dtypes and values)."""
+    sd = {}
+    for e in dir_mapping(backbone_layers):
+        tree = params if e.collection == "params" else batch_stats
+        leaf = _get(tree, e.path)
+        if leaf is None:
+            continue
+        arr = np.array(_INV[e.kind](np.asarray(leaf)), order="C", copy=True)
+        sd[e.torch_key] = torch.from_numpy(arr)
+    return sd
