@@ -7,17 +7,24 @@ Run from the repository root with no arguments:
 Phases, in order; any failure ends the run with a non-zero exit code:
   1. require a CUDA device (no CPU fallback), print the card's name and
      power limit, turn TF32 off for the fp32 references;
-  2. build kernel K1 (dir_tpu_torch/csrc/fused_bottleneck.cu) with nvcc
-     for sm_90a and print its register and shared-memory report;
-  3. hold K1 against its plain PyTorch version at the main path's shape,
-     in both residual forms, and time the kernel, the plain version and
-     the unfused cuDNN block (a yardstick the port never calls);
+  2. build the kernels with nvcc for sm_90a, one compiler per source at
+     once (K1 and K2 in dir_tpu_torch/csrc/fused_bottleneck.cu, K5 in
+     dir_tpu_torch/csrc/bone_splat.cu), and print their register, spill
+     and shared-memory reports;
+  3. hold each kernel against its plain PyTorch version at the main path's
+     shapes (K1 in both residual forms at the layer1 shape, K2 at the
+     layer2 shape, K5 at both refine stages' sizes), and time the kernel,
+     the plain version and, for the bottlenecks, the unfused cuDNN block (a
+     yardstick the port never calls);
   4. serve requests of batch 1, 8 and 64 through the full-width bf16
-     flagship (ResNet-50, 256x256, seeded random weights, fused
-     bottleneck on), check every output and K1's launches, hold K1
-     against its plain version on the activations that layer1_1 and
-     layer1_2 received at batch 64, compare the final stage with the
-     port's fp32 forward on the card, and time the requests;
+     flagship (ResNet-50, 256x256, seeded random weights) in configuration
+     A (K1 at layer1, factored splat conv) and, on the same weights, in
+     configuration B (K1 at layer1, K2 at layer2, the materialized bone
+     splat through K5); check every output and each kernel's launches per
+     request, hold the kernels against their plain versions on what the
+     path fed them at batch 64, compare each final stage with the port's
+     fp32 forward on the card (also through the port's batch_metrics), and
+     time the requests of both configurations;
   5. print the ``kernels`` line, then the one-line result.
 """
 
@@ -37,21 +44,35 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # Published H100 SXM peaks (NVIDIA data sheet), for the bound of each kernel.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_FP32_FLOP_PER_S = 67e12
 
-# K1 against its plain version at the path's shape: bf16 outputs may differ
-# where an fp32 sum in another order rounds an intermediate the other way.
-# Bound: KERNEL_TOL_ULPS bf16 ulps (2^-8 relative) of the output's max |value|;
-# measured one ulp (0.03125 at |out| up to 6.06, seed 0).
+# K1 and K2 against their plain version at the path's shapes: bf16 outputs
+# may differ where an fp32 sum in another order rounds an intermediate the
+# other way. Bound: KERNEL_TOL_ULPS bf16 ulps (2^-8 relative) of the output's
+# max |value|; measured one ulp (0.03125 at |out| up to 6.06, seed 0).
 KERNEL_TOL_ULPS = 4
-# bf16 trunk with K1 against the fp32 unfused forward on the card: max abs
-# error over the final stage's joints and meshes of both hands, in mm. The
-# bf16 unfused forward shows the same error (measured 7.0 mm at batch 64
-# against 6.6 mm with K1, seed 0), so the bound is bf16's, not K1's.
+# K5 against its plain version: one ulp of the feature dtype at the output's
+# max |value|, outside the (pixel, bone) pairs within 1e-4 px
+# (ops/bone_splat.py:THRESHOLD_MARGIN_PX) of the mask's threshold in the plain
+# version's fp32 geometry (there the step can fall either way under another
+# rounding); at most SPLAT_MAX_LEFT_OUT of the pairs may be left out.
+SPLAT_MAX_LEFT_OUT = 1e-3
+# bf16 trunk with the kernels against the fp32 unfused forward on the card:
+# max abs error over the final stage's joints and meshes of both hands, in
+# mm. The bf16 unfused forward shows the same error (measured 7.0 mm at batch
+# 64 against 6.6 mm with K1, seed 0), so the bound is bf16's, not a kernel's.
 SERVE_TOL_MM = 15.0
 BATCHES = (1, 8, 64)
 LATENCY_REPS = 11
-PATH_SHAPE = (256, 64, 64, 256)    # layer1_1 / layer1_2 at eval batch 256
-PATH_MID = 64
+K1_SHAPE = (256, 64, 64, 256)      # layer1_1 / layer1_2 at eval batch 256
+K1_MID = 64
+K2_SHAPE = (256, 32, 32, 512)      # layer2_1..3 at eval batch 256
+K2_MID = 128
+K2_BANDS = 4
+# K5 at eval batch 256: (batch, S, C, distance) of the two refine stages
+K5_SHAPES = ((256, 32, 64, 2.0), (256, 16, 64, 1.0))
+# launches per request of (K1, K2, K5) in the two configurations
+EXPECTED = {"A": (2, 0, 0), "B": (2, 3, 4)}
 
 
 def say(msg: str) -> None:
@@ -75,32 +96,35 @@ def time_cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(fb, x, ws, what: str):
-    """K1 against its plain version on ``x``; returns the max abs error and
-    the plain result, raises past KERNEL_TOL_ULPS bf16 ulps of the output's
-    max |value|."""
-    out = fb.fused_bottleneck_infer(x, *ws)
+def compare(fb, x, ws, what: str, bands: int = 0):
+    """The fused bottleneck (K1, or K2 with ``bands``) against its plain
+    version on ``x``; returns the max abs error and the plain result, raises
+    past KERNEL_TOL_ULPS bf16 ulps of the output's max |value|."""
+    name = "K2" if bands else "K1"
+    out = fb.fused_bottleneck_infer(x, *ws, bands=bands)
     ref = fb.fused_bottleneck_infer_plain(x, *ws)
     torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs()
     err = float(diff.max())
     scale = float(ref.float().abs().max())
     tol = KERNEL_TOL_ULPS * 2.0 ** -8 * scale
-    say(f"K1 {what}: max abs err {err:.6g} (max |out| {scale:.6g}, "
+    say(f"{name} {what}: max abs err {err:.6g} (max |out| {scale:.6g}, "
         f"tolerance {tol:.6g}), mismatched elements "
         f"{float((diff > 0).float().mean()):.3g}")
     if not (err <= tol and torch.isfinite(out).all()):
-        raise RuntimeError(f"K1 ({what}) disagrees with its plain version")
+        raise RuntimeError(f"{name} ({what}) disagrees with its plain version")
     return err, ref
 
 
-def kernel_phase(fb):
-    """K1 against its plain version, both residual forms, with timings."""
+def bottleneck_phase(fb, shape, mid: int, bands: int, forms):
+    """K1 (``bands`` 0) or K2 against the plain version at ``shape``, in the
+    residual ``forms`` given, with timings and the bound."""
+    name = "K2" if bands else "K1"
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    b, h, w, c = PATH_SHAPE
-    mid, o = PATH_MID, c
-    x = torch.randn(PATH_SHAPE, generator=g, device=dev).to(torch.bfloat16)
+    b, h, w, c = shape
+    o = c
+    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
     def weight(*shape):
         fan_in = 1
@@ -112,12 +136,12 @@ def kernel_phase(fb):
         return torch.rand(n, generator=g, device=dev) - 0.5
 
     results = {}
-    for form in ("identity", "projection"):
+    for form in forms:
         down = form == "projection"
         ws = [weight(c, mid), bias(mid), weight(3, 3, mid, mid), bias(mid),
               weight(mid, o), bias(o)]
         ws += [weight(c, o), bias(o)] if down else [None, None]
-        err, ref = compare(fb, x, ws, form)
+        err, ref = compare(fb, x, ws, form, bands)
 
         # the unfused cuDNN block on the same folded weights (yardstick)
         bf = torch.bfloat16
@@ -141,7 +165,9 @@ def kernel_phase(fb):
 
         lib_err = float((library().permute(0, 2, 3, 1).float()
                          - ref.float()).abs().max())
-        kernel_ms = time_cuda_ms(lambda: fb.fused_bottleneck_infer(x, *ws), 20)
+        del ref
+        kernel_ms = time_cuda_ms(
+            lambda: fb.fused_bottleneck_infer(x, *ws, bands=bands), 20)
         plain_ms = time_cuda_ms(
             lambda: fb.fused_bottleneck_infer_plain(x, *ws), 5)
         library_ms = time_cuda_ms(library, 20)
@@ -161,11 +187,68 @@ def kernel_phase(fb):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops,
         }
-        say(f"K1 {form}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"cuDNN block {library_ms:.4f} ms (max abs err {lib_err:.4g}), "
+        say(f"{name} {form}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, cuDNN block {library_ms:.4f} ms (max abs err {lib_err:.4g}), "
             f"bound {results[form]['bound_ms']:.4f} ms "
             f"({results[form]['bound_by']})")
-        del ref
+    return results
+
+
+def compare_splat(bs, uv, feat, size: int, distance: float, what: str):
+    """K5 against its plain version on ``(uv, feat)``, outside the pairs
+    near the mask's threshold; returns the max abs error, raises past one
+    ulp of the feature dtype at the output's max |value| or when too many
+    pairs are left out."""
+    out = bs.bone_splat(uv, feat, size, distance)
+    ref = bs.bone_splat_plain(uv, feat, size, distance)
+    near = bs.threshold_pairs(uv, size, distance)
+    torch.cuda.synchronize()
+    err, tol, left_out = bs.mismatch_outside_threshold(out, ref, near)
+    say(f"K5 {what}: max abs err {err:.6g} (max |out| "
+        f"{float(ref.float().abs().max()):.6g}, tolerance {tol:.6g}), "
+        f"mismatched elements {float((out != ref).float().mean()):.3g} "
+        f"(threshold pairs included), threshold pairs left out "
+        f"{int(near.sum())} ({left_out:.3g} of all)")
+    if not (err <= tol and left_out <= SPLAT_MAX_LEFT_OUT
+            and torch.isfinite(out).all()):
+        raise RuntimeError(f"K5 ({what}) disagrees with its plain version")
+    return err
+
+
+def splat_phase(bs):
+    """K5 against its plain version at the two refine stages' shapes, bf16
+    features, with timings and the bound. No single PyTorch call computes
+    the splat, so there is no library time."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    results = []
+    for b, size, c, distance in K5_SHAPES:
+        uv = torch.rand((b, 21, 2), generator=g, device=dev) * 1.8 - 0.9
+        feat = torch.randn((b, 21, c), generator=g, device=dev).to(
+            torch.bfloat16)
+        what = f"(B {b}, S {size}, C {c}, distance {distance})"
+        err = compare_splat(bs, uv, feat, size, distance, what)
+        kernel_ms = time_cuda_ms(
+            lambda: bs.bone_splat(uv, feat, size, distance), 20)
+        plain_ms = time_cuda_ms(
+            lambda: bs.bone_splat_plain(uv, feat, size, distance), 5)
+        nbytes = (uv.numel() * 4 + feat.numel() * 2
+                  + b * size * size * 20 * c * 2)
+        # about 40 fp32 operations per (pixel, bone) for the two weights,
+        # 3 per output element
+        flops = b * size * size * 20 * (40 + 3 * c)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+        results.append({
+            "shape": [b, size, c, distance], "max_abs_err": err,
+            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+        })
+        say(f"K5 {what}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {results[-1]['bound_ms']:.4f} ms "
+            f"({results[-1]['bound_by']}); no library call computes it")
     return results
 
 
@@ -192,78 +275,146 @@ def check_outputs(out: dict, b: int) -> None:
             raise RuntimeError(f"{key}: {tuple(t.shape)}")
 
 
-def serve_phase(fb):
-    """Requests through the bf16 flagship, checked against fp32."""
+def kernel_counts(fb, bs):
+    """Launches so far of (K1, K2, K5)."""
+    f = fb.fused_bottleneck_infer
+    return (f.launches, f.streamed_launches, bs.bone_splat.launches)
+
+
+def drive(fb, bs, name: str, infer, images: dict):
+    """The main path in configuration ``name``: the kernels' counts set to
+    0, one request per batch size, the counts read; every output and the
+    launches per request checked. Returns the outputs and the counts."""
+    f = fb.fused_bottleneck_infer
+    f.launches = f.streamed_launches = bs.bone_splat.launches = 0
+    outputs, per_request = {}, {}
+    for b in BATCHES:
+        before = kernel_counts(fb, bs)
+        outputs[b] = infer(images[b])
+        torch.cuda.synchronize()
+        per_request[b] = tuple(
+            n - m for n, m in zip(kernel_counts(fb, bs), before))
+    launches = kernel_counts(fb, bs)
+    say(f"main path, configuration {name}: launches per request of (K1, K2, "
+        f"K5) {per_request}, total {launches}")
+    for b in BATCHES:
+        check_outputs(outputs[b], b)
+        if per_request[b] != EXPECTED[name]:
+            raise RuntimeError(
+                f"configuration {name}, batch {b}: (K1, K2, K5) ran "
+                f"{per_request[b]} times, expected {EXPECTED[name]}")
+    return outputs, launches
+
+
+def serve_phase(fb, bs):
+    """Requests through the bf16 flagship in configurations A and B, checked
+    against fp32."""
+    from dir_tpu_torch.models import dir as dir_module
     from dir_tpu_torch.models.dir import DIR
-    from dir_tpu_torch.serve import (build_flagship, condition_random_,
-                                     make_infer)
+    from dir_tpu_torch.serve import (CONFIG_B, build_flagship,
+                                     condition_random_, make_infer)
+    from dir_tpu_torch.train import evaluate
 
     model, cfg, mano_l, mano_r = build_flagship(
         device="cuda", dtype="bfloat16", fused_bottleneck_eval=True, seed=0)
     # random weights make the bf16-vs-fp32 comparison ill-conditioned
     # unless the MANO heads and BatchNorm statistics are set up first
     condition_random_(model, mano_l, mano_r, seed=0)
-    infer = make_infer(model, mano_l, mano_r)
+
+    def variant(**kw):
+        m = DIR(dataclasses.replace(cfg, **kw))
+        m.load_state_dict(model.state_dict(), strict=True)
+        return m.to("cuda").eval()
+
+    # configuration B on configuration A's weights: same state_dict
+    model_b = variant(**CONFIG_B)
+    infers = {"A": make_infer(model, mano_l, mano_r),
+              "B": make_infer(model_b, mano_l, mano_r)}
     rng = np.random.RandomState(0)
     images = {b: rng.randn(b, 256, 256, 3).astype(np.float32)
               for b in BATCHES}
     say(f"flagship built: backbone {cfg.backbone_layers}, dtype {cfg.dtype}, "
-        f"{sum(p.numel() for p in model.parameters())} parameters")
+        f"{sum(p.numel() for p in model.parameters())} parameters; "
+        f"configuration B = {CONFIG_B}")
 
-    # the inputs of the two fused blocks, kept from the last request
-    blocks = {f"layer1_{i}": model.backbone.layer1[i] for i in (1, 2)}
-    received = {}
+    # what the fused blocks and the splat received, kept from the last
+    # request (batch 64): forward pre-hooks on the blocks, and a recording
+    # wrapper in the place where the model looks the splat up
+    blocks = {"A": {f"layer1_{i}": model.backbone.layer1[i] for i in (1, 2)},
+              "B": {f"layer2_{i}": model_b.backbone.layer2[i]
+                    for i in (1, 2, 3)}}
+    received, splats = {}, []
     hooks = [blk.register_forward_pre_hook(
         lambda _, args, name=name: received.__setitem__(name, args[0]))
-        for name, blk in blocks.items()]
+        for group in blocks.values() for name, blk in group.items()]
 
-    # the main path: K1's count from 0, read right after the requests
-    fb.fused_bottleneck_infer.launches = 0
-    outputs, per_request = {}, {}
-    for b in BATCHES:
-        before = fb.fused_bottleneck_infer.launches
-        outputs[b] = infer(images[b])
-        torch.cuda.synchronize()
-        per_request[b] = fb.fused_bottleneck_infer.launches - before
-    launches = fb.fused_bottleneck_infer.launches
+    def recording_splat(uv, feat, size, distance):
+        splats.append((uv, feat, size, distance))
+        return bs.bone_splat(uv, feat, size, distance)
+
+    outputs, launches = {}, {}
+    outputs["A"], launches["A"] = drive(fb, bs, "A", infers["A"], images)
+    dir_module.bone_splat = recording_splat
+    try:
+        outputs["B"], launches["B"] = drive(fb, bs, "B", infers["B"], images)
+    finally:
+        dir_module.bone_splat = bs.bone_splat
     for h in hooks:
         h.remove()
-    say(f"main path: K1 launches per request {per_request}, total {launches}")
-    for b in BATCHES:
-        check_outputs(outputs[b], b)
-        if per_request[b] != 2:
-            raise RuntimeError(f"K1 ran {per_request[b]} times at batch {b}, "
-                               "expected 2 (layer1_1, layer1_2)")
 
-    # K1 against its plain version on what the path fed it at batch 64
-    served_err = 0.0
+    # the kernels against their plain versions on what the path fed them at
+    # batch 64
+    served_err = {"K1": 0.0, "K2": 0.0, "K5": 0.0}
     with torch.inference_mode():
-        for name, blk in blocks.items():
-            x = received[name]
-            if x.shape[0] != BATCHES[-1]:
-                raise RuntimeError(f"{name} received batch {x.shape[0]}")
-            xn = x.to(blk.dtype).permute(0, 2, 3, 1)
-            err, _ = compare(fb, xn, blk.folded_weights(),
-                             f"{name} at batch {BATCHES[-1]} (served "
-                             "activations)")
-            served_err = max(served_err, err)
-    del received
+        for name, group in blocks.items():
+            for block_name, blk in group.items():
+                x = received[block_name]
+                if x.shape[0] != BATCHES[-1]:
+                    raise RuntimeError(f"{block_name} received batch "
+                                       f"{x.shape[0]}")
+                xn = x.to(blk.dtype).permute(0, 2, 3, 1)
+                bands = K2_BANDS if name == "B" else 0
+                err, _ = compare(fb, xn, blk.folded_weights(),
+                                 f"{block_name} at batch {BATCHES[-1]} "
+                                 "(served activations)", bands)
+                key = "K2" if bands else "K1"
+                served_err[key] = max(served_err[key], err)
+        if [t[0].shape[0] for t in splats[-4:]] != [BATCHES[-1]] * 4:
+            raise RuntimeError("the last four splats are not batch "
+                               f"{BATCHES[-1]}'s")
+        for i, (uv, feat, size, distance) in enumerate(splats[-4:]):
+            err = compare_splat(
+                bs, uv, feat, size, distance,
+                f"stage {i // 2 + 1} {'left' if i % 2 == 0 else 'right'} at "
+                f"batch {BATCHES[-1]} (served joints, S {size}, distance "
+                f"{distance})")
+            served_err["K5"] = max(served_err["K5"], err)
+        # the visualization map, where the model returns it
+        vis = model_b(torch.from_numpy(images[8]).cuda(), mano_l, mano_r,
+                      want_vis=True)["vis_img_feat"]
+        if tuple(vis.shape) != (8, 32, 32, 1280) or not torch.isfinite(vis).all():
+            raise RuntimeError(f"vis_img_feat: {tuple(vis.shape)}")
+    del received, splats, vis
 
     # the port's fp32 unfused forward on the same weights, TF32 off; the
     # bf16 unfused forward beside it shows what bf16 alone costs
-    def variant(**kw):
-        m = DIR(dataclasses.replace(cfg, **kw))
-        m.load_state_dict(model.state_dict())
-        return make_infer(m.to("cuda"), mano_l, mano_r)
-
-    ref_infer = variant(dtype="float32", fused_bottleneck_eval=False)
-    bf16_infer = variant(fused_bottleneck_eval=False)
+    ref_infer = make_infer(variant(dtype="float32",
+                                   fused_bottleneck_eval=False),
+                           mano_l, mano_r)
+    bf16_infer = make_infer(variant(fused_bottleneck_eval=False),
+                            mano_l, mano_r)
     keys = ("pd_joint_xyz_left", "pd_joint_xyz_right",
             "pd_mesh_xyz_left", "pd_mesh_xyz_right")
-    worst = {}
+    jregs = [evaluate.extended_j_regressor(m) for m in (mano_l, mano_r)]
+    camera = torch.tensor([[500.0, 0, 128], [0, 500, 128], [0, 0, 1]],
+                          device="cuda")
+    depth = torch.tensor([0.0, 0.0, 0.5], device="cuda")
+    worst = {"A": {}, "B": {}}
+    metrics = {}
     for b in BATCHES:
         ref = ref_infer(images[b])["stages"][-1]
-        for name, fin in (("bf16+K1", outputs[b]["stages"][-1]),
+        for name, fin in (("bf16 A", outputs["A"][b]["stages"][-1]),
+                          ("bf16 B", outputs["B"][b]["stages"][-1]),
                           ("bf16 unfused", bf16_infer(images[b])["stages"][-1])):
             errs = {k: float((fin[k] - ref[k]).abs().max()) * 1e3
                     for k in keys}
@@ -273,29 +424,51 @@ def serve_phase(fb):
             say(f"batch {b}: {name} vs fp32, final stage max abs err "
                 + ", ".join(f"{k[3:]} {v:.4f} mm" for k, v in errs.items())
                 + f"; worst sample's mean joint err {mpjpe:.4f} mm")
-            if name == "bf16+K1":
-                worst[b] = max(errs.values())
-    if max(worst.values()) > SERVE_TOL_MM:
-        raise RuntimeError(f"bf16 path off the fp32 forward by "
-                           f"{max(worst.values()):.4f} mm > {SERVE_TOL_MM}")
+            if name != "bf16 unfused":
+                worst[name[-1]][b] = max(errs.values())
+        a_fin, b_fin = (outputs[n][b]["stages"][-1] for n in "AB")
+        say(f"batch {b}: B vs A, final stage max abs diff "
+            + ", ".join(f"{k[3:]} {float((b_fin[k] - a_fin[k]).abs().max()) * 1e3:.4f} mm"
+                        for k in keys))
+        # bf16 B against the fp32 forward through the port's metrics, the
+        # fp32 meshes standing in for the ground truth, 0.5 m from the camera
+        acc = evaluate.batch_metrics(
+            b_fin["pd_mesh_xyz_left"] + depth,
+            b_fin["pd_mesh_xyz_right"] + depth, b_fin["pd_offset"],
+            ref["pd_mesh_xyz_left"] + depth, ref["pd_mesh_xyz_right"] + depth,
+            camera.expand(b, 3, 3), *jregs,
+            torch.ones(b, device="cuda"))
+        summary = evaluate.summarize({k: float(v) for k, v in acc.items()})
+        metrics[b] = {"mpjpe_mm": summary["joint_mean_all_mm"],
+                      "mpvpe_mm": summary["vert_mean_all_mm"]}
+        say(f"batch {b}: bf16 B vs fp32 through batch_metrics: MPJPE "
+            f"{metrics[b]['mpjpe_mm']:.4f} mm, MPVPE "
+            f"{metrics[b]['mpvpe_mm']:.4f} mm")
+    for name in "AB":
+        if max(worst[name].values()) > SERVE_TOL_MM:
+            raise RuntimeError(
+                f"configuration {name}: bf16 path off the fp32 forward by "
+                f"{max(worst[name].values()):.4f} mm > {SERVE_TOL_MM}")
     del ref_infer, bf16_infer
 
     # request latency on the host clock, image upload included; the host's
     # cores are shared, so the spread is printed beside the median
-    latency = {}
+    latency = {"A": {}, "B": {}}
     for b in BATCHES:
-        times = []
-        for _ in range(LATENCY_REPS):
-            t = time.perf_counter()
-            infer(images[b])
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        times.sort()
-        latency[b] = times[len(times) // 2]
-        say(f"batch {b}: request latency median {latency[b]:.3f} ms, min "
-            f"{times[0]:.3f}, max {times[-1]:.3f} over {LATENCY_REPS} "
-            f"({b / latency[b] * 1e3:.1f} img/s at the median)")
-    return launches, served_err, worst, latency
+        for name in "AB":
+            times = []
+            for _ in range(LATENCY_REPS):
+                t = time.perf_counter()
+                infers[name](images[b])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            times.sort()
+            latency[name][b] = times[len(times) // 2]
+            say(f"batch {b}, configuration {name}: request latency median "
+                f"{latency[name][b]:.3f} ms, min {times[0]:.3f}, max "
+                f"{times[-1]:.3f} over {LATENCY_REPS} "
+                f"({b / latency[name][b] * 1e3:.1f} img/s at the median)")
+    return launches, served_err, worst, latency, metrics
 
 
 def main() -> int:
@@ -303,6 +476,8 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device; this check runs only "
                          "on the card")
     sys.path.insert(0, REPO)
+    from dir_tpu_torch.ops import bone_splat as bs
+    from dir_tpu_torch.ops import cuda_build
     from dir_tpu_torch.ops import fused_bottleneck as fb
 
     smi = subprocess.run(
@@ -315,34 +490,51 @@ def main() -> int:
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    log = fb.build()
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            say(f"ptxas: {line.strip()}")
-    say("K1 built")
+    reports = cuda_build.build_many([(fb.NAME, ()),
+                                     (bs.NAME, bs.NVCC_EXTRA_FLAGS)])
+    for name, log in reports.items():
+        for line in log.splitlines():
+            if "Compiling entry" in line:
+                say(f"ptxas {name}: " + line.split("'")[1])
+            elif "registers" in line or "spill" in line or "smem" in line:
+                say(f"ptxas {name}:   {line.strip()}")
+    say("K1, K2 (fused_bottleneck) and K5 (bone_splat) built")
 
-    forms = kernel_phase(fb)
-    launches, served_err, worst_mm, latency = serve_phase(fb)
+    k1 = bottleneck_phase(fb, K1_SHAPE, K1_MID, 0, ("identity", "projection"))
+    k2 = bottleneck_phase(fb, K2_SHAPE, K2_MID, K2_BANDS, ("identity",))
+    k5 = splat_phase(bs)
+    launches, served_err, worst_mm, latency, metrics = serve_phase(fb, bs)
 
-    # times and bound at the path's shape in the identity form; the error
-    # is the worst of that check and the served activations' check
-    ident = forms["identity"]
-    kernels = {"kernels": [{
-        "name": "fused_bottleneck",
-        "route": "cuda",
-        "source": "dir_tpu_torch/csrc/fused_bottleneck.cu",
-        "replaces": "dir_tpu/ops/pallas_bottleneck.py:119",
-        "launches": launches,
-        "max_abs_err": max(ident["max_abs_err"], served_err),
-        "ms": ident["ms"],
-        "plain_ms": ident["plain_ms"],
-        "bound_ms": ident["bound_ms"],
-        "bound_by": ident["bound_by"],
-        "library_ms": ident["library_ms"],
-        "shape": list(PATH_SHAPE) + [PATH_MID],
-        "projection": forms["projection"],
-    }]}
-    say(f"serve: worst final-stage err {worst_mm} mm; latency ms {latency}")
+    # times and bound at the path's shape (the identity form for K1 and K2,
+    # the larger stage for K5); the error is the worst of that check and the
+    # served inputs' check; launches are the main path's, A's and B's runs
+    def entry(name, source, replaces, index, at_shape, shape, **more):
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": launches["A"][index] + launches["B"][index],
+            "launches_by_configuration": {n: launches[n][index] for n in "AB"},
+            "max_abs_err": max(at_shape["max_abs_err"],
+                               served_err[f"K{(1, 2, 5)[index]}"]),
+            "ms": at_shape["ms"], "plain_ms": at_shape["plain_ms"],
+            "bound_ms": at_shape["bound_ms"],
+            "bound_by": at_shape["bound_by"],
+            "library_ms": at_shape["library_ms"], "shape": shape, **more}
+
+    kernels = {"kernels": [
+        entry("fused_bottleneck", "dir_tpu_torch/csrc/fused_bottleneck.cu",
+              "dir_tpu/ops/pallas_bottleneck.py:119", 0, k1["identity"],
+              list(K1_SHAPE) + [K1_MID], projection=k1["projection"]),
+        entry("fused_bottleneck_streamed",
+              "dir_tpu_torch/csrc/fused_bottleneck.cu",
+              "dir_tpu/ops/pallas_bottleneck.py:130", 1, k2["identity"],
+              list(K2_SHAPE) + [K2_MID]),
+        entry("bone_splat", "dir_tpu_torch/csrc/bone_splat.cu",
+              "dir_tpu/ops/pallas_bone_splat.py:36", 2, k5[0],
+              k5[0]["shape"], stage1=k5[1]),
+    ]}
+    say(f"serve: worst final-stage err {worst_mm} mm; latency ms {latency}; "
+        f"bf16 B vs fp32 {metrics}")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

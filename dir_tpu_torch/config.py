@@ -20,7 +20,9 @@ class ModelConfig:
     # Backbone pyramid channel dims (ResNet-50): c1..c4.
     backbone: str = "resnet50"
     backbone_layers: Tuple[int, int, int, int] = (3, 4, 6, 3)
-    # Stem variant: only "conv7" (torchvision layout) is ported so far.
+    # Stem variant: "conv7" (torchvision layout) or "s2d" (space-to-depth
+    # then a 4x4 stride-1 conv; models/resnet.py:stem_weights_to_s2d
+    # rewrites conv7 weights exactly).
     backbone_stem: str = "conv7"
     backbone_dims: Tuple[int, int, int, int] = (256, 512, 1024, 2048)
     # Decoder feature dims per stage.
@@ -44,12 +46,19 @@ class ModelConfig:
     # Compute dtype of the conv/transformer trunk ("float32" | "bfloat16").
     # MANO, geometry and the parameter heads always run fp32.
     dtype: str = "float32"
-    # Bone-splat kernel on the materialized splat path (not ported yet).
+    # Bone-splat kernel (ops/bone_splat.py) on the materialized splat
+    # path, i.e. with fused_splat_conv=False; False runs its plain version.
+    # The name is the JAX package's field.
     use_pallas_splat: bool = False
     # Inference-only fused bottleneck kernel for the 64x64 backbone
     # blocks (ops/fused_bottleneck.py); same parameters either way.
     fused_bottleneck_eval: bool = False
-    # Int8 serving options (not ported yet).
+    # With fused_bottleneck_eval, > 0 also sends the stride-1 layer2 blocks
+    # (32x32, 512 channels) through the fused route, as bands=N. The JAX
+    # package reads this from the FUSED_L2_BANDS environment variable at
+    # import; the port takes it as a field and reads no environment.
+    fused_l2_bands: int = 0
+    # Int8 serving options (not ported yet: ROADMAP A13).
     quant_backbone_eval: bool = False
     quant_decoder_eval: bool = False
     quant_aux_eval: bool = False

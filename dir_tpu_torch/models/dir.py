@@ -26,6 +26,7 @@ from dir_tpu_torch.models.layers import (ConvHead, MLP1d, Residual, conv2d,
                                          upsample2x)
 from dir_tpu_torch.models.resnet import ResNetPyramid
 from dir_tpu_torch.models.transformer import STE
+from dir_tpu_torch.ops.bone_splat import bone_splat, bone_splat_plain
 from dir_tpu_torch.ops.projection import ortho_project
 from dir_tpu_torch.ops.sampling import grid_sample_nhwc
 from dir_tpu_torch.ops.splat_conv import fused_splat_conv
@@ -151,7 +152,15 @@ class ImgToJointFeature(nn.Module):
 class RefineStage(nn.Module):
     """One decoupled refinement stage: joint-space interaction (image
     sampling, GCN, cross-hand transformer), the MANO update, and the
-    image-space re-projection through the factored splat conv."""
+    image-space re-projection: through the factored splat conv
+    (``cfg.fused_splat_conv``), or through the two materialized bone splats
+    (kernel K5 with ``cfg.use_pallas_splat``, else its plain version), their
+    concat and the 3x3 fusion conv. Both branches hold the same parameters.
+
+    Returns ``(result, feats)``; ``feats["img_feat"]`` is the fused map,
+    and with ``want_vis`` on the materialized branch ``feats["vis_img_feat"]``
+    is the sum of the two splat maps (for visualization only; the factored
+    branch never builds them)."""
 
     def __init__(self, cfg: ModelConfig, in_ch: int, distance: float, dtype):
         super().__init__()
@@ -174,7 +183,8 @@ class RefineStage(nn.Module):
             nn.BatchNorm2d(in_ch), nn.ReLU(), nn.Conv2d(in_ch, in_ch, 1))
         self.regressor = RegressorOffset(cfg)
 
-    def forward(self, img_feat: torch.Tensor, prev: dict, pair: ManoModel):
+    def forward(self, img_feat: torch.Tensor, prev: dict, pair: ManoModel,
+                want_vis: bool = False):
         cfg, dt = self.cfg, self.dtype
         scale = cfg.coord_scale
         xyz_l = prev["pd_joint_xyz_left"].detach()
@@ -203,13 +213,27 @@ class RefineStage(nn.Module):
         pf_l = self.proj_feat_emb(feat_l)
         pf_r = self.proj_feat_emb(feat_r)
         conv1, bn, _, conv2 = self.fusion
-        fused = fused_splat_conv(
-            result["pd_joint_uv_left"], result["pd_joint_uv_right"],
-            pf_l, pf_r, conv1.weight.permute(2, 3, 1, 0).to(dt), conv1.bias,
-            img_feat.shape[2], self.distance).to(dt)
-        fused = torch.relu(bn(_nchw(fused)))
-        fused = conv2d(fused, conv2, dt)
-        return result, fused
+        size = img_feat.shape[2]
+        feats = {"joint_feat_left": feat_l, "joint_feat_right": feat_r}
+        if cfg.fused_splat_conv:
+            fused = _nchw(fused_splat_conv(
+                result["pd_joint_uv_left"], result["pd_joint_uv_right"],
+                pf_l, pf_r, conv1.weight.permute(2, 3, 1, 0).to(dt),
+                conv1.bias, size, self.distance).to(dt))
+        else:
+            splat = bone_splat if cfg.use_pallas_splat else bone_splat_plain
+            splat_l = splat(result["pd_joint_uv_left"], pf_l, size,
+                            self.distance)
+            splat_r = splat(result["pd_joint_uv_right"], pf_r, size,
+                            self.distance)
+            # NHWC concat: a channels_last NCHW view, no copy before cuDNN
+            fused = conv2d(_nchw(torch.cat([splat_l, splat_r], dim=-1)),
+                           conv1, dt)
+            if want_vis:
+                feats["vis_img_feat"] = splat_l + splat_r
+        fused = torch.relu(bn(fused))
+        feats["img_feat"] = conv2d(fused, conv2, dt)
+        return result, feats
 
 
 class Decoder(nn.Module):
@@ -232,22 +256,24 @@ class Decoder(nn.Module):
         self.seg = ConvHead(d, d // 2, 3, dtype=dtype)
         self.dense = ConvHead(d, d // 2, 3, dtype=dtype)
 
-    def forward(self, feats, init_out: dict, pair: ManoModel) -> dict:
+    def forward(self, feats, init_out: dict, pair: ManoModel,
+                want_vis: bool = False) -> dict:
         _, c2, c3, c4 = feats
         outputs = []
 
         # stage 1 at c3's resolution (16x16 at 256^2 input)
         c4_up = _nchw(upsample2x(_nhwc(c4)))
         fusion = self.fusion_layer4(c4_up, pair=self.skip_layer4(c3))
-        result, img_feat = self.projecter_4(fusion, init_out, pair)
-        enhance = self.enhance_layer4(fusion, pair=img_feat)
+        result, stage_feats = self.projecter_4(fusion, init_out, pair)
+        enhance = self.enhance_layer4(fusion, pair=stage_feats["img_feat"])
         outputs.append(result)
 
         # stage 2 at c2's resolution (32x32)
         c3_up = _nchw(upsample2x(_nhwc(enhance)))
         fusion = self.fusion_layer3(c3_up, pair=self.skip_layer3(c2))
-        result, img_feat = self.projecter_3(fusion, result, pair)
-        enhance = self.enhance_layer3(fusion, pair=img_feat)
+        result, stage_feats = self.projecter_3(fusion, result, pair,
+                                               want_vis)
+        enhance = self.enhance_layer3(fusion, pair=stage_feats["img_feat"])
         outputs.append(result)
 
         x = self.conv_final(enhance)
@@ -255,38 +281,46 @@ class Decoder(nn.Module):
             "result_list": outputs,
             "seg": _nhwc(_head32(self.seg(x))),
             "dense": _nhwc(_head32(self.dense(x))),
+            "proj_feat": stage_feats.get("vis_img_feat"),
         }
 
 
 class DIR(nn.Module):
     """Full DIR network. ``forward(img, mano_left, mano_right)`` takes an
     NHWC image batch and returns ``{"stages": [init, refine1, refine2],
-    "seg": (B, 32, 32, 3), "dense": (B, 32, 32, 3)}``."""
+    "seg": (B, 32, 32, 3), "dense": (B, 32, 32, 3)}``. With
+    ``want_vis=True`` and the materialized splat branch
+    (``cfg.fused_splat_conv=False``) it also returns ``"vis_img_feat"``,
+    the last stage's summed splat maps (B, 32, 32, 20 * joint_dim); the JAX
+    package computes that map inside its jitted program, where it costs
+    nothing unless read, so here it is made only on request."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.backbone_stem != "conv7":
-            raise NotImplementedError("only the conv7 stem is ported")
-        if not cfg.fused_splat_conv:
-            raise NotImplementedError("only the factored splat conv is ported")
         if (cfg.quant_backbone_eval or cfg.quant_decoder_eval
                 or cfg.quant_aux_eval):
-            raise NotImplementedError("int8 serving is not ported yet")
+            raise NotImplementedError(
+                "int8 serving is not ported yet (ROADMAP A13)")
         self.cfg = cfg
         dtype = getattr(torch, cfg.dtype)
         self.backbone = ResNetPyramid(cfg.backbone_layers, dtype,
-                                      fused_eval=cfg.fused_bottleneck_eval)
+                                      fused_eval=cfg.fused_bottleneck_eval,
+                                      stem=cfg.backbone_stem,
+                                      fused_l2_bands=cfg.fused_l2_bands)
         self.init_regressor = InitRegressor(cfg, dtype)
         self.decoder = Decoder(cfg, dtype)
 
     def forward(self, img: torch.Tensor, mano_left: ManoModel,
-                mano_right: ManoModel) -> dict:
+                mano_right: ManoModel, want_vis: bool = False) -> dict:
         pair = stack_mano_pair(mano_left, mano_right)
         feats = self.backbone(_nchw(img))
         init_out = self.init_regressor(feats[-1], pair)
-        decode = self.decoder(feats, init_out, pair)
-        return {
+        decode = self.decoder(feats, init_out, pair, want_vis)
+        out = {
             "stages": [init_out] + decode["result_list"],
             "seg": decode["seg"],
             "dense": decode["dense"],
         }
+        if decode["proj_feat"] is not None:
+            out["vis_img_feat"] = decode["proj_feat"]
+        return out

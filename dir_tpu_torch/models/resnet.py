@@ -1,5 +1,5 @@
 """ResNet-50 backbone returning the 4-level feature pyramid
-(counterpart of ``dir_tpu/models/resnet.py``, conv7 stem).
+(counterpart of ``dir_tpu/models/resnet.py``, conv7 and s2d stems).
 
 torchvision v1.5 bottlenecks: the stride sits on the 3x3 conv, padding
 is symmetric, and a 1x1 projection exists where the residual shapes
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -24,14 +25,16 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, dtype=torch.float32,
-                 fused_eval: bool = False):
+                 fused_eval: bool = False, fused_l2_bands: int = 0):
         super().__init__()
         out = planes * self.expansion
         self.stride = stride
         self.dtype = dtype
-        # Inference-only fused kernel (ops/fused_bottleneck.py) for the
-        # blocks its guard takes; the parameters are the same either way.
+        # Inference-only fused kernels (ops/fused_bottleneck.py) for the
+        # blocks the guard takes; the parameters are the same either way.
+        # fused_l2_bands > 0 extends the guard to the 32x32 (layer2) shape.
         self.fused_eval = fused_eval
+        self.fused_l2_bands = fused_l2_bands
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
@@ -44,10 +47,15 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # The guard of the JAX package: not training, stride 1, >= 128
-        # input channels and >= 4096 spatial positions (layer1_1, layer1_2).
+        # input channels, and >= 4096 spatial positions (layer1_1, layer1_2)
+        # or, with fused_l2_bands, >= 1024 (layer2_1..3, through bands=N).
+        spatial = x.shape[2] * x.shape[3]
         if (self.fused_eval and not self.training and self.stride == 1
-                and x.shape[1] >= 128 and x.shape[2] * x.shape[3] >= 4096):
-            return self._fused_infer(x)
+                and x.shape[1] >= 128
+                and (spatial >= 4096
+                     or (spatial >= 1024 and self.fused_l2_bands))):
+            return self._fused_infer(
+                x, bands=0 if spatial >= 4096 else self.fused_l2_bands)
         dt = self.dtype
         out = torch.relu(self.bn1(conv2d(x, self.conv1, dt)))
         out = torch.relu(self.bn2(conv2d(out, self.conv2, dt)))
@@ -75,22 +83,68 @@ class Bottleneck(nn.Module):
             wd = wd[0, 0]
         return [w1[0, 0], b1, w2, b2, w3[0, 0], b3, wd, bd]
 
-    def _fused_infer(self, x: torch.Tensor) -> torch.Tensor:
+    def _fused_infer(self, x: torch.Tensor, bands: int = 0) -> torch.Tensor:
         """Run the whole block as one fused kernel on the NHWC view of
         ``x``, with the folded weights."""
         y = fused_bottleneck_infer(x.to(self.dtype).permute(0, 2, 3, 1),
-                                   *self.folded_weights())
+                                   *self.folded_weights(), bands=bands)
         return y.permute(0, 3, 1, 2)
 
 
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/b, W/b, b*b*C), channel index
+    ((a*b)+bb)*C + c for the offset (a, bb) inside a block."""
+    b_, h, w, c = x.shape
+    x = x.reshape(b_, h // block, block, w // block, block, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b_, h // block, w // block, block * block * c)
+
+
+def stem_weights_to_s2d(w7: torch.Tensor) -> torch.Tensor:
+    """Exact rewrite of the 7x7/stride-2 stem kernel (7, 7, C, O) into the
+    4x4/stride-1 kernel (4, 4, 4C, O) applied after ``space_to_depth(2)``
+    with padding (2, 1).
+
+    Output (i, j) of the original conv reads input rows 2i+di-3, di in
+    [0, 7); in 2-block coordinates row r = 2p+a, so di = 2*pi - 1 + a for
+    the block-row offset pi in [0, 4). Entries with di outside [0, 7) are
+    zero.
+    """
+    w7 = np.asarray(w7)
+    c, o = w7.shape[2], w7.shape[3]
+    w4 = np.zeros((4, 4, 4 * c, o), w7.dtype)
+    for pi in range(4):
+        for pj in range(4):
+            for a in range(2):
+                for b_ in range(2):
+                    di = 2 * pi - 1 + a
+                    dj = 2 * pj - 1 + b_
+                    if 0 <= di < 7 and 0 <= dj < 7:
+                        ch = (a * 2 + b_) * c
+                        w4[pi, pj, ch:ch + c] = w7[di, dj]
+    return torch.from_numpy(w4)
+
+
 class ResNetPyramid(nn.Module):
-    """ResNet (conv7 stem) emitting [c1, c2, c3, c4] at strides 4/8/16/32."""
+    """ResNet emitting [c1, c2, c3, c4] at strides 4/8/16/32.
+
+    stem: "conv7" is the torchvision layout; "s2d" applies
+    space-to-depth(2), then the equivalent 4x4/stride-1 conv on the
+    12-channel map, padded (2, 1) on both axes (``conv1.weight`` is then
+    (64, 12, 4, 4); :func:`stem_weights_to_s2d` converts conv7 weights
+    exactly).
+    """
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
-                 dtype=torch.float32, fused_eval: bool = False):
+                 dtype=torch.float32, fused_eval: bool = False,
+                 stem: str = "conv7", fused_l2_bands: int = 0):
         super().__init__()
+        if stem not in ("conv7", "s2d"):
+            raise ValueError(f"unknown stem {stem!r}")
         self.dtype = dtype
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.stem = stem
+        self.conv1 = (nn.Conv2d(3, 64, 7, 2, 3, bias=False) if stem == "conv7"
+                      else nn.Conv2d(12, 64, 4, 1, 0, bias=False))
         self.bn1 = nn.BatchNorm2d(64)
         inplanes = 64
         for stage, (blocks, planes) in enumerate(
@@ -102,13 +156,18 @@ class ResNetPyramid(nn.Module):
                                    or inplanes != planes * Bottleneck.expansion)
                 seq.append(Bottleneck(inplanes, planes,
                                       stride if b == 0 else 1, down,
-                                      dtype=dtype, fused_eval=fused_eval))
+                                      dtype=dtype, fused_eval=fused_eval,
+                                      fused_l2_bands=fused_l2_bands))
                 inplanes = planes * Bottleneck.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*seq))
 
     def forward(self, x: torch.Tensor) -> list:
         """x: (B, 3, H, W); returns four channels_last NCHW maps."""
-        x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        x = x.to(self.dtype)
+        if self.stem == "s2d":
+            x = space_to_depth(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            x = F.pad(x, (2, 1, 2, 1))
+        x = x.contiguous(memory_format=torch.channels_last)
         x = torch.relu(self.bn1(conv2d(x, self.conv1, self.dtype)))
         x = F.max_pool2d(x, 3, 2, 1)
         x = x.contiguous(memory_format=torch.channels_last)

@@ -1,0 +1,77 @@
+"""Build of the port's CUDA sources (``dir_tpu_torch/csrc/*.cu``).
+
+Each source has a plain C interface and is compiled with ``nvcc`` for
+``sm_90a`` into ``<repo>/build/lib<name>.so`` at first use, then bound
+with ``ctypes``. A failed build raises; nothing falls back.
+:func:`build_many` starts one ``nvcc`` per source together, so several
+kernels build in the time of the slowest.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def source_path(name: str) -> str:
+    return os.path.join(CSRC_DIR, f"{name}.cu")
+
+
+def library_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _log_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"{name}.log")
+
+
+def _tmp_path(name: str) -> str:
+    return f"{library_path(name)}.{os.getpid()}.tmp"
+
+
+def start_build(name: str, extra_flags=()):
+    """Start ``nvcc`` on ``csrc/<name>.cu`` if its library is missing or
+    older than the source; returns the process, or None when up to date."""
+    lib, src = library_path(name), source_path(name)
+    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+        return None
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(_log_path(name), "w") as log:
+        return subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *extra_flags, "-o", _tmp_path(name), src],
+            stdout=log, stderr=subprocess.STDOUT)
+
+
+def finish_build(name: str, proc) -> str:
+    """Wait for ``proc`` (from :func:`start_build`), move the library into
+    place and return the ``-Xptxas -v`` report of the last build."""
+    if proc is not None:
+        rc = proc.wait()
+        with open(_log_path(name)) as f:
+            log = f.read()
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu ({rc}):\n{log}")
+        os.replace(_tmp_path(name), library_path(name))
+    if not os.path.exists(_log_path(name)):
+        return ""
+    with open(_log_path(name)) as f:
+        return f.read()
+
+
+def build(name: str, extra_flags=()) -> str:
+    return finish_build(name, start_build(name, extra_flags))
+
+
+def build_many(specs) -> dict:
+    """``specs``: (name, extra_flags) pairs. All compilers run at once;
+    returns ``{name: report}``."""
+    procs = [(name, start_build(name, flags)) for name, flags in specs]
+    return {name: finish_build(name, proc) for name, proc in procs}

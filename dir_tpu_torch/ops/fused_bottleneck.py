@@ -1,35 +1,32 @@
-"""Fused stride-1 ResNet bottleneck at inference (kernel K1).
+"""Fused stride-1 ResNet bottleneck at inference (kernels K1 and K2).
 
-Counterpart of ``dir_tpu/ops/pallas_bottleneck.py:fused_bottleneck_infer``
-with ``bands=0``. On a CUDA tensor :func:`fused_bottleneck_infer` launches
-the hand-written Hopper kernel in ``csrc/fused_bottleneck.cu``; on a CPU
-tensor it runs :func:`fused_bottleneck_infer_plain`, the plain PyTorch
-version with the same rounding points. There is no other fallback: a
-CUDA tensor the kernel does not take raises.
+Counterpart of ``dir_tpu/ops/pallas_bottleneck.py:fused_bottleneck_infer``.
+On a CUDA tensor :func:`fused_bottleneck_infer` launches a hand-written
+Hopper kernel from ``csrc/fused_bottleneck.cu``: with ``bands=0`` K1, which
+keeps a tile's whole input halo and each phase's weights in shared memory
+(the layer1 shape), and with ``bands>0`` K2, which streams the input and
+the weights through shared memory in chunks and so takes any width (the
+layer2 shape, where K1's working set does not fit). On a CPU tensor it
+runs :func:`fused_bottleneck_infer_plain`, the plain PyTorch version with
+the same rounding points; banding changes a schedule, not the math, so
+one plain version serves both. There is no other fallback: a CUDA tensor
+a kernel does not take raises.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` into
-``<repo>/build/`` at first use, from this package's sources only, and
-bound with ``ctypes``.
+The kernels are compiled at first use (``ops/cuda_build.py``) from this
+package's sources only, and bound with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import shutil
-import subprocess
 
 import torch
 import torch.nn.functional as F
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "fused_bottleneck.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
-LIBRARY = os.path.join(BUILD_DIR, "libfused_bottleneck.so")
-BUILD_LOG = os.path.join(BUILD_DIR, "fused_bottleneck.log")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from dir_tpu_torch.ops import cuda_build
+
+NAME = "fused_bottleneck"            # csrc/fused_bottleneck.cu
 # H100: dynamic shared memory one block may use.
 _MAX_SMEM = 232448
 
@@ -80,34 +77,21 @@ def fused_bottleneck_infer_plain(x, w1, b1, w2, b2, w3, b3, wd=None,
 def build() -> str:
     """Compile the kernel library if it is missing or older than its
     source; returns the ``-Xptxas -v`` report of the last build."""
-    if (not os.path.exists(LIBRARY)
-            or os.path.getmtime(LIBRARY) < os.path.getmtime(SOURCE)):
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True, check=False)
-        log = proc.stdout + proc.stderr
-        with open(BUILD_LOG, "w") as f:
-            f.write(log)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, LIBRARY)
-    if not os.path.exists(BUILD_LOG):
-        return ""
-    with open(BUILD_LOG) as f:
-        return f.read()
+    return cuda_build.build(NAME)
 
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     build()
-    lib = ctypes.CDLL(LIBRARY)
+    lib = ctypes.CDLL(cuda_build.library_path(NAME))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fused_bottleneck_bf16.argtypes = [vp] * 10 + [ci] * 7 + [vp]
-    lib.fused_bottleneck_bf16.restype = ci
+    for fn in (lib.fused_bottleneck_bf16, lib.fused_bottleneck_streamed_bf16):
+        fn.argtypes = [vp] * 10 + [ci] * 7 + [vp]
+        fn.restype = ci
     lib.fused_bottleneck_smem_bytes.argtypes = [ci, ci, ci]
     lib.fused_bottleneck_smem_bytes.restype = ci
+    lib.fused_bottleneck_streamed_smem_bytes.argtypes = [ci]
+    lib.fused_bottleneck_streamed_smem_bytes.restype = ci
     lib.fused_bottleneck_error_string.argtypes = [ci]
     lib.fused_bottleneck_error_string.restype = ctypes.c_char_p
     return lib
@@ -120,7 +104,9 @@ def _check(t: torch.Tensor, name: str, shape: tuple, device) -> None:
         raise ValueError(f"{name} is on {t.device}, x on {device}")
 
 
-def _launch(x, w1, b1, w2, b2, w3, b3, wd, bd) -> torch.Tensor:
+def _launch(x, w1, b1, w2, b2, w3, b3, wd, bd, streamed) -> torch.Tensor:
+    """Launch K2 (``streamed``) or K1 on a CUDA ``x``; raises on anything
+    the kernel does not take."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA kernel takes bf16 activations, got "
                         f"{x.dtype}")
@@ -148,9 +134,16 @@ def _launch(x, w1, b1, w2, b2, w3, b3, wd, bd) -> torch.Tensor:
     if not 0 < b <= 65535:
         raise ValueError(f"batch {b} outside 1..65535")
     lib = _library()
-    if lib.fused_bottleneck_smem_bytes(c, mid, o) > _MAX_SMEM:
+    if streamed:
+        kernel, smem = (lib.fused_bottleneck_streamed_bf16,
+                        lib.fused_bottleneck_streamed_smem_bytes(mid))
+    else:
+        kernel, smem = (lib.fused_bottleneck_bf16,
+                        lib.fused_bottleneck_smem_bytes(c, mid, o))
+    if smem > _MAX_SMEM:
         raise ValueError(f"C={c}, mid={mid}, O={o} exceed the block's "
-                         "shared memory")
+                         "shared memory; bands > 0 selects the kernel that "
+                         "streams them")
 
     bf = torch.bfloat16
     ws = [w1.to(bf).contiguous(), w2.to(bf).contiguous(),
@@ -168,35 +161,44 @@ def _launch(x, w1, b1, w2, b2, w3, b3, wd, bd) -> torch.Tensor:
     down_b = bs[3].data_ptr() if has_down else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fused_bottleneck_bf16(
+        rc = kernel(
             x.data_ptr(), ws[0].data_ptr(), bs[0].data_ptr(),
             ws[1].data_ptr(), bs[1].data_ptr(), ws[2].data_ptr(),
             bs[2].data_ptr(), down_w, down_b, out.data_ptr(),
             b, h, w, c, mid, o, int(has_down), stream)
     if rc != 0:
         msg = lib.fused_bottleneck_error_string(rc).decode()
-        raise RuntimeError(f"fused_bottleneck_bf16 launch failed: {msg}")
-    fused_bottleneck_infer.launches += 1
+        raise RuntimeError(f"fused bottleneck launch failed: {msg}")
+    if streamed:
+        fused_bottleneck_infer.streamed_launches += 1
+    else:
+        fused_bottleneck_infer.launches += 1
     return out
 
 
-def fused_bottleneck_infer(x, w1, b1, w2, b2, w3, b3, wd=None,
-                           bd=None) -> torch.Tensor:
+def fused_bottleneck_infer(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None,
+                           bands: int = 0) -> torch.Tensor:
     """One fused stride-1 bottleneck block at inference.
 
-    Same arguments and result as :func:`fused_bottleneck_infer_plain`.
-    A CUDA ``x`` must be bf16 and NHWC-contiguous and goes to the kernel;
-    a CPU ``x`` goes to the plain version. ``fused_bottleneck_infer.launches``
-    counts the kernel's launches only; ``fused_bottleneck_infer.plain_runs``
-    counts the CPU calls that ran the plain version in its place.
+    Same arguments and result as :func:`fused_bottleneck_infer_plain`, plus
+    ``bands``: 0 launches K1, N > 0 launches K2 (the JAX package's row-banded
+    schedule, needed for the layer2 shape; ``H % bands`` must be 0 as
+    there, though K2's tiling does not depend on N). A CUDA ``x`` must be
+    bf16 and NHWC-contiguous and goes to the kernel; a CPU ``x`` goes to the
+    plain version. ``fused_bottleneck_infer.launches`` counts K1's launches
+    and ``.streamed_launches`` K2's, on the card only; ``.plain_runs``
+    counts the CPU calls that ran the plain version in a kernel's place.
     """
+    if bands < 0 or (bands and x.shape[1] % bands):
+        raise ValueError(f"bands={bands} must be 0 or divide H={x.shape[1]}")
     if x.device.type == "cpu":
         fused_bottleneck_infer.plain_runs += 1
         return fused_bottleneck_infer_plain(x, w1, b1, w2, b2, w3, b3, wd, bd)
     if x.device.type != "cuda":
         raise ValueError(f"no fused bottleneck for device {x.device}")
-    return _launch(x, w1, b1, w2, b2, w3, b3, wd, bd)
+    return _launch(x, w1, b1, w2, b2, w3, b3, wd, bd, streamed=bands > 0)
 
 
 fused_bottleneck_infer.launches = 0
+fused_bottleneck_infer.streamed_launches = 0
 fused_bottleneck_infer.plain_runs = 0

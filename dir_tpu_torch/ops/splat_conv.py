@@ -20,11 +20,14 @@ PARENT = (0, 1, 2, 3, 0, 5, 6, 7, 0, 9, 10, 11, 0, 13, 14, 15, 0, 17, 18, 19)
 CHILD = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20)
 
 
-def splat_weights(joint_uv: torch.Tensor, size: int, distance: float):
-    """Masked interpolation weights of the bone splat.
+def bone_distances(joint_uv: torch.Tensor, size: int):
+    """Pixel-to-bone geometry of the splat, in at least fp32.
 
-    joint_uv: (B, 21, 2) in [-1, 1]. Returns (w_a, w_b), each
-    (B, S, S, 20), in at least fp32.
+    joint_uv: (B, 21, 2) in [-1, 1]. Returns ``(seg_dist, seg_len, dist_a,
+    dist_b)``: the point-to-segment distance of every pixel centre (x
+    fastest) to every bone, (B, S*S, 20); the bones' lengths, (B, 1, 20);
+    and the distances to the bones' two endpoints, (B, S*S, 20), all in
+    pixels.
     """
     ct = torch.promote_types(joint_uv.dtype, torch.float32)
     uv = (joint_uv.to(ct) + 1.0) / 2.0 * size
@@ -44,13 +47,23 @@ def splat_weights(joint_uv: torch.Tensor, size: int, distance: float):
     d_pa = p - a
     cross = d_pa[..., 0] * d[..., 1] - d_pa[..., 1] * d[..., 0]
     seg_dist = torch.hypot(h, cross)
-    mask = (seg_dist < distance) & (seg_len[..., 0] > 0)
-
     dist_a = torch.linalg.norm(p - a, dim=-1)
     dist_b = torch.linalg.norm(p - bb, dim=-1)
+    return seg_dist, seg_len[..., 0], dist_a, dist_b
+
+
+def splat_weights(joint_uv: torch.Tensor, size: int, distance: float):
+    """Masked interpolation weights of the bone splat.
+
+    joint_uv: (B, 21, 2) in [-1, 1]. Returns (w_a, w_b), each
+    (B, S, S, 20), in at least fp32: zero where the pixel is ``distance``
+    or more from the bone or the bone has no length.
+    """
+    seg_dist, seg_len, dist_a, dist_b = bone_distances(joint_uv, size)
+    mask = (seg_dist < distance) & (seg_len > 0)
     denom = dist_a + dist_b
     denom = torch.where(denom > 0, denom, torch.ones_like(denom))
-    zero = torch.zeros((), dtype=ct, device=uv.device)
+    zero = torch.zeros((), dtype=seg_dist.dtype, device=seg_dist.device)
     w_a = torch.where(mask, 1.0 - dist_a / denom, zero)
     w_b = torch.where(mask, 1.0 - dist_b / denom, zero)
     b = joint_uv.shape[0]

@@ -17,6 +17,10 @@ from dir_tpu_torch.mano.assets import (ManoModel, fix_left_shapedirs,
 from dir_tpu_torch.models.dir import DIR
 from dir_tpu_torch.models.gcn import PGraphConv
 
+# The keyword arguments of :func:`build_flagship` that select configuration B.
+CONFIG_B = {"fused_l2_bands": 4, "fused_splat_conv": False,
+            "use_pallas_splat": True}
+
 # Linear layers that regress MANO parameters / the offset start near zero.
 _HEAD_NAMES = ("mano_left", "mano_right", "offset")
 # Bias of the MANO parameter heads set by :func:`condition_random_`: the
@@ -124,16 +128,27 @@ def flagship_mano(assets_dir: str = "./assets/mano"):
 
 
 def build_flagship(device=None, dtype: str = "bfloat16",
-                   fused_bottleneck_eval: bool = True, seed: int = 0):
+                   fused_bottleneck_eval: bool = True, seed: int = 0,
+                   fused_l2_bands: int = 0, fused_splat_conv: bool = True,
+                   use_pallas_splat: bool = False):
     """The flagship DIR model (ResNet-50) in eval mode with seeded random
     weights, and the MANO pair of :func:`flagship_mano`.
+
+    The defaults are configuration A (the fused bottleneck at layer1, the
+    factored splat conv). ``fused_l2_bands=4, fused_splat_conv=False,
+    use_pallas_splat=True`` is configuration B: the fused bottleneck at
+    layer2 as well, and the materialized bone splat through its kernel.
+    Both hold the same parameters, so one ``state_dict`` loads into either.
 
     Runs on CUDA unless ``device`` names another device; raises when no
     card is present and none was named. Returns
     ``(model, cfg, mano_left, mano_right)``, all on ``device``.
     """
     dev = resolve_device(device)
-    cfg = ModelConfig(dtype=dtype, fused_bottleneck_eval=fused_bottleneck_eval)
+    cfg = ModelConfig(dtype=dtype, fused_bottleneck_eval=fused_bottleneck_eval,
+                      fused_l2_bands=fused_l2_bands,
+                      fused_splat_conv=fused_splat_conv,
+                      use_pallas_splat=use_pallas_splat)
     model = random_init_(DIR(cfg), seed).to(dev).eval()
     mano_l, mano_r = (m.to(dev) for m in flagship_mano())
     return model, cfg, mano_l, mano_r

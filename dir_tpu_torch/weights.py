@@ -206,3 +206,21 @@ def jax_to_state_dict(params: dict, batch_stats: dict,
         arr = np.array(_INV[e.kind](np.asarray(leaf)), order="C", copy=True)
         sd[e.torch_key] = torch.from_numpy(arr)
     return sd
+
+
+def adapt_stem_s2d(state_dict: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """Rewrite a conv7 stem weight (64, C, 7, 7) to the space-to-depth
+    layout (64, 4C, 4, 4) wherever a ``conv1.weight`` has a 7x7 kernel, so
+    that conv7 checkpoints load into ``backbone_stem="s2d"`` models. The
+    rewrite is exact (``models/resnet.py:stem_weights_to_s2d``); the other
+    entries are returned as they are."""
+    from dir_tpu_torch.models.resnet import stem_weights_to_s2d
+
+    out = dict(state_dict)
+    for key, w in state_dict.items():
+        if (key.rsplit(".", 2)[-2:] == ["conv1", "weight"]
+                and tuple(w.shape[2:]) == (7, 7)):
+            w4 = stem_weights_to_s2d(w.permute(2, 3, 1, 0).cpu().numpy())
+            out[key] = w4.permute(3, 2, 0, 1).contiguous().to(w.device)
+    return out

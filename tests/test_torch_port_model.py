@@ -5,7 +5,10 @@ One seeded JAX DIR with ``backbone_layers=(3, 1, 1, 1)`` at 256x256 and
 ``fused_bottleneck_eval=True``: the smallest config in which the fused
 guard takes two blocks (layer1_1 and layer1_2), as in the flagship. Its
 random params and BN stats reach the port through ``weights.py``; both
-forwards run at fp32 on the CPU.
+forwards run at fp32 on the CPU. The same variables run in configuration A
+(the factored splat conv) and in configuration B (the materialized bone
+splat through its kernel's route, Pallas in interpret mode on the JAX
+side); a ``(1, 2, 1, 1)`` backbone adds B's layer2 guard.
 """
 
 import ast
@@ -19,15 +22,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from dir_tpu.config import ModelConfig as JModelConfig
 from dir_tpu.mano import fix_left_shapedirs as jfix
 from dir_tpu.mano import synthetic_mano as jsynthetic
+from dir_tpu.models import resnet as jresnet
 from dir_tpu.models.dir import DIR as JDIR
 from dir_tpu.train.checkpoint import export_torch_dir_state
 
 from dir_tpu_torch.config import ModelConfig
 from dir_tpu_torch.models.dir import DIR
+from dir_tpu_torch.ops import bone_splat as bs
 from dir_tpu_torch.ops import fused_bottleneck as fb
 from dir_tpu_torch.serve import build_flagship, flagship_mano, make_infer
 from dir_tpu_torch.weights import jax_to_state_dict
@@ -40,42 +46,79 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAYERS = (3, 1, 1, 1)
 
 
+# The fields that make configuration B, in both packages.
+CONFIG_B = dict(fused_splat_conv=False, use_pallas_splat=True)
+
+
+def _counts():
+    """(kernel launches, plain-version runs) of the fused bottleneck and of
+    the bone splat so far."""
+    f = fb.fused_bottleneck_infer
+    return (f.launches + f.streamed_launches, f.plain_runs,
+            bs.bone_splat.launches, bs.bone_splat.plain_runs)
+
+
+def _jax_forward(layers, img, variables=None, **cfg):
+    """The JAX DIR's eval forward on seeded random variables (made here
+    unless given), with Pallas kernels in interpret mode; returns the
+    variables, the outputs and the decoder's ``proj_feat``."""
+    mano_r = jsynthetic("right", seed=0)
+    mano_l = jfix(jsynthetic("left", seed=0), mano_r)
+    jmodel = JDIR(JModelConfig(backbone_layers=layers,
+                               fused_bottleneck_eval=True, **cfg))
+    if variables is None:
+        # random params and BN stats with a fan-in scale; only the tree's
+        # shapes are needed, so the init itself is never run
+        shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0),
+                                jnp.asarray(img), mano_l, mano_r)
+        variables = rand_variables(np.random.RandomState(0), shapes)
+    with pltpu.force_tpu_interpret_mode():
+        ref, state = jmodel.apply(
+            variables, jnp.asarray(img), mano_l, mano_r, train=False,
+            capture_intermediates=lambda mdl, _: mdl.name == "decoder",
+            mutable=["intermediates"])
+    decoder_out = state["intermediates"]["decoder"]["__call__"][0]
+    return variables, ref, decoder_out["proj_feat"]
+
+
+def _port_forward(layers, img, variables, want_vis=False, **cfg):
+    """The port's DIR on the same variables, carried across by the weight
+    bridge; returns the outputs and the kernels' counts over the forward."""
+    params = numpy_tree(variables["params"])
+    stats = numpy_tree(variables["batch_stats"])
+    model = DIR(ModelConfig(backbone_layers=layers,
+                            fused_bottleneck_eval=True, **cfg)).eval()
+    model.load_state_dict(jax_to_state_dict(params, stats, layers),
+                          strict=True)
+    tl, tr = flagship_mano("/nonexistent")  # the synthetic pair
+    before = _counts()
+    if want_vis:
+        with torch.inference_mode():
+            out = model(torch.from_numpy(img), tl, tr, want_vis=True)
+    else:
+        out = make_infer(model, tl, tr)(img)
+    return out, tuple(a - b for a, b in zip(_counts(), before))
+
+
+def _image():
+    return np.random.RandomState(0).randn(1, 256, 256, 3).astype(np.float32)
+
+
 @pytest.fixture(scope="module")
 def slice_run():
     """JAX variables, the JAX outputs and the port's outputs for one seeded
-    image; the port's K1 counts (kernel launches, plain-version runs) over
-    its forward."""
-    rng = np.random.RandomState(0)
-    img = rng.randn(1, 256, 256, 3).astype(np.float32)
-    mano_r = jsynthetic("right", seed=0)
-    mano_l = jfix(jsynthetic("left", seed=0), mano_r)
-    jmodel = JDIR(JModelConfig(backbone_layers=LAYERS,
-                               fused_bottleneck_eval=True))
-    # random params and BN stats with a fan-in scale; only the tree's
-    # shapes are needed, so the init itself is never run
-    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0),
-                            jnp.asarray(img), mano_l, mano_r)
-    variables = rand_variables(rng, shapes)
-    ref = jmodel.apply(variables, jnp.asarray(img), mano_l, mano_r,
-                       train=False)
-
+    image in configuration A; the port's kernel counts over its forward."""
+    img = _image()
+    variables, ref, _ = _jax_forward(LAYERS, img)
+    out, counts = _port_forward(LAYERS, img, variables)
     params = numpy_tree(variables["params"])
     stats = numpy_tree(variables["batch_stats"])
-    model = DIR(ModelConfig(backbone_layers=LAYERS,
-                            fused_bottleneck_eval=True)).eval()
-    model.load_state_dict(jax_to_state_dict(params, stats, LAYERS),
-                          strict=True)
-    tl, tr = flagship_mano("/nonexistent")  # the synthetic pair
-    f = fb.fused_bottleneck_infer
-    before = (f.launches, f.plain_runs)
-    out = make_infer(model, tl, tr)(img)
-    counts = (f.launches - before[0], f.plain_runs - before[1])
-    return params, stats, ref, out, counts
+    return params, stats, ref, out, counts, variables
 
 
 def test_weight_bridge_matches_checkpoint_export(slice_run):
     """Key for key and bit for bit against the JAX package's export."""
-    params, stats, *_ = slice_run
+    params, stats = slice_run[:2]
     want = export_torch_dir_state(params, stats, LAYERS)
     got = jax_to_state_dict(params, stats, LAYERS)
     assert sorted(got) == sorted(want)
@@ -103,10 +146,9 @@ TOLERANCES = {
 }
 
 
-def test_slice_matches_jax(slice_run):
-    _, _, ref, out, counts = slice_run
-    # on the CPU the wrapper runs K1's plain version in the kernel's place
-    assert counts == (0, 2), "the fused bottleneck must run layer1_1 and 1_2"
+def _assert_matches(ref: dict, out: dict) -> None:
+    """All three stages, seg and dense of the port against the JAX outputs,
+    within TOLERANCES."""
     assert len(out["stages"]) == 3
     for stage, (r, o) in enumerate(zip(ref["stages"], out["stages"])):
         assert sorted(o) == sorted(r)
@@ -124,6 +166,58 @@ def test_slice_matches_jax(slice_run):
     for key in ("seg", "dense"):
         assert tuple(out[key].shape) == (1, 32, 32, 3)
         assert max_err(out[key], ref[key]) < TOLERANCES["head"], key
+
+
+def test_slice_matches_jax(slice_run):
+    _, _, ref, out, counts, _ = slice_run
+    # on the CPU the wrapper runs K1's plain version in the kernel's place
+    assert counts == (0, 2, 0, 0), \
+        "the fused bottleneck must run layer1_1 and 1_2"
+    assert "vis_img_feat" not in out
+    _assert_matches(ref, out)
+
+
+def test_config_b_matches_jax_and_config_a(slice_run):
+    """Configuration B (materialized splat through K5's route) on A's
+    variables: against the JAX DIR with fused_splat_conv=False and
+    use_pallas_splat=True in interpret mode, and against the port's A."""
+    _, _, _, out_a, _, variables = slice_run
+    img = _image()
+    _, ref, ref_vis = _jax_forward(LAYERS, img, variables, **CONFIG_B)
+    out, counts = _port_forward(LAYERS, img, variables, want_vis=True,
+                                **CONFIG_B)
+    # K1's route twice, K5's route for 2 hands x 2 stages, all plain here
+    assert counts == (0, 2, 0, 4)
+    _assert_matches(ref, out)
+    assert tuple(out["vis_img_feat"].shape) == (1, 32, 32, 20 * 64)
+    # measured max abs err 9.5e-7 (map values of order 1)
+    assert max_err(out["vis_img_feat"], ref_vis) < 5e-6
+    # B against A in the port: the factorization is exact up to the fp32
+    # summation order. Measured max abs err over all outputs: 8.9e-7 (a seg
+    # logit); B against the JAX package: 1.4e-6 (a MANO parameter)
+    _assert_matches({k: [{kk: vv.numpy() for kk, vv in st.items()}
+                         for st in v] if k == "stages" else v.numpy()
+                     for k, v in out_a.items()}, out)
+    # without want_vis, or in configuration A, the map is never built
+    plain, _ = _port_forward(LAYERS, img, variables, **CONFIG_B)
+    assert "vis_img_feat" not in plain
+
+
+def test_config_b_layer2_guard_matches_jax(monkeypatch):
+    """Configuration B with fused_l2_bands=4 on a (1, 2, 1, 1) backbone:
+    layer2_1 goes through the fused route with bands=4 (K2's), the splats
+    through K5's; against the JAX DIR with _FUSED_L2_BANDS patched to 4."""
+    layers = (1, 2, 1, 1)
+    img = _image()
+    monkeypatch.setattr(jresnet, "_FUSED_L2_BANDS", 4)
+    variables, ref, _ = _jax_forward(layers, img, **CONFIG_B)
+    out, counts = _port_forward(layers, img, variables, fused_l2_bands=4,
+                                **CONFIG_B)
+    assert counts == (0, 1, 0, 4)     # layer2_1; 2 hands x 2 stages
+    _assert_matches(ref, out)
+    # with the field at 0 layer2 stays unfused (and layer1 has one block)
+    _, counts = _port_forward(layers, img, variables, **CONFIG_B)
+    assert counts == (0, 0, 0, 4)
 
 
 def test_entry_points_refuse_a_cpu_only_box():
