@@ -8,23 +8,28 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   1. require a CUDA device (no CPU fallback), print the card's name and
      power limit, turn TF32 off for the fp32 references;
   2. build the kernels with nvcc for sm_90a, one compiler per source at
-     once (K1 and K2 in dir_tpu_torch/csrc/fused_bottleneck.cu, K5 in
-     dir_tpu_torch/csrc/bone_splat.cu), and print their register, spill
-     and shared-memory reports;
+     once (K1 and K2 in dir_tpu_torch/csrc/fused_bottleneck.cu, K3 in
+     fused_bottleneck_int8.cu, K4 in fused_stem_bottleneck.cu, K5 in
+     bone_splat.cu), and print their register, spill and shared-memory
+     reports;
   3. hold each kernel against its plain PyTorch version at the main path's
      shapes (K1 in both residual forms at the layer1 shape, K2 at the
-     layer2 shape, K5 at both refine stages' sizes), and time the kernel,
-     the plain version and, for the bottlenecks, the unfused cuDNN block (a
-     yardstick the port never calls);
+     layer2 shape, K3 at both, K4 at the stem's shape, K5 at both refine
+     stages' sizes), and time the kernel, the plain version and, for the
+     bottlenecks, the unfused library block (cuDNN for the bf16 kernels, the
+     port's own unfused int8 block for K3: yardsticks the fused routes never
+     call);
   4. serve requests of batch 1, 8 and 64 through the full-width bf16
      flagship (ResNet-50, 256x256, seeded random weights) in configuration
      A (K1 at layer1, factored splat conv) and, on the same weights, in
      configuration B (K1 at layer1, K2 at layer2, the materialized bone
-     splat through K5); check every output and each kernel's launches per
-     request, hold the kernels against their plain versions on what the
-     path fed them at batch 64, compare each final stage with the port's
-     fp32 forward on the card (also through the port's batch_metrics), and
-     time the requests of both configurations;
+     splat through K5) and in configuration C (int8 static serving,
+     calibrated on a seeded batch: K3 at layer1 and layer2, no other
+     kernel); check every output and each kernel's launches per request,
+     hold the kernels against their plain versions on what the path fed
+     them at batch 64, compare each final stage with the port's fp32 forward
+     on the card (also through the port's batch_metrics), and time the
+     requests of all three configurations;
   5. print the ``kernels`` line, then the one-line result.
 """
 
@@ -44,6 +49,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # Published H100 SXM peaks (NVIDIA data sheet), for the bound of each kernel.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_INT8_OP_PER_S = 1979e12
 PEAK_FP32_FLOP_PER_S = 67e12
 
 # K1 and K2 against their plain version at the path's shapes: bf16 outputs
@@ -62,6 +68,19 @@ SPLAT_MAX_LEFT_OUT = 1e-3
 # mm. The bf16 unfused forward shows the same error (measured 7.0 mm at batch
 # 64 against 6.6 mm with K1, seed 0), so the bound is bf16's, not a kernel's.
 SERVE_TOL_MM = 15.0
+# K3 against its plain version: the s32 sums are exact and every rounding is
+# the same operation in both, so the two are bit-equal (measured 0 mismatched
+# elements at both shapes and on the served activations); the bound is one
+# bf16 ulp (2^-8 relative) of the output's max |value|.
+INT8_TOL_ULPS = 1
+# Configuration C (int8 static, bf16 trunk) against the fp32 forward, same
+# measure as SERVE_TOL_MM. Int8 has its own error on top of bf16's: measured
+# 4.6 / 9.7 / 7.6 mm at batch 1 / 8 / 64 (A: 3.6 / 3.9 / 6.6), seed 0. The
+# bound is about twice the worst, as SERVE_TOL_MM is of bf16's: it catches a
+# path that breaks, not quantization noise.
+SERVE_TOL_MM_INT8 = 20.0
+# images of the seeded calibration batch of configuration C
+CALIBRATION_BATCH = 16
 BATCHES = (1, 8, 64)
 LATENCY_REPS = 11
 K1_SHAPE = (256, 64, 64, 256)      # layer1_1 / layer1_2 at eval batch 256
@@ -69,10 +88,17 @@ K1_MID = 64
 K2_SHAPE = (256, 32, 32, 512)      # layer2_1..3 at eval batch 256
 K2_MID = 128
 K2_BANDS = 4
+# K3 at eval batch 256: (shape, mid, bands) of layer1_1/1_2 and layer2_1..3
+K3_SHAPES = ((K1_SHAPE, K1_MID, 1), (K2_SHAPE, K2_MID, 4))
+K4_SHAPE = (256, 128, 128, 64)     # the raw stem-conv output at eval batch 256
+K4_MID, K4_OUT = 64, 256           # layer1_0
 # K5 at eval batch 256: (batch, S, C, distance) of the two refine stages
 K5_SHAPES = ((256, 32, 64, 2.0), (256, 16, 64, 1.0))
-# launches per request of (K1, K2, K5) in the two configurations
-EXPECTED = {"A": (2, 0, 0), "B": (2, 3, 4)}
+KERNELS = ("K1", "K2", "K3", "K4", "K5")
+CONFIGS = "ABC"
+# launches per request of (K1, K2, K3, K4, K5) in the three configurations;
+# no model calls K4, in the JAX package or here
+EXPECTED = {"A": (2, 0, 0, 0, 0), "B": (2, 3, 0, 0, 4), "C": (0, 0, 5, 0, 0)}
 
 
 def say(msg: str) -> None:
@@ -116,15 +142,11 @@ def compare(fb, x, ws, what: str, bands: int = 0):
     return err, ref
 
 
-def bottleneck_phase(fb, shape, mid: int, bands: int, forms):
-    """K1 (``bands`` 0) or K2 against the plain version at ``shape``, in the
-    residual ``forms`` given, with timings and the bound."""
-    name = "K2" if bands else "K1"
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    b, h, w, c = shape
-    o = c
-    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+def folded_weights(g, c: int, mid: int, o: int, down: bool) -> list:
+    """Seeded folded weights of one bottleneck in the kernels' argument order
+    ``[w1, b1, w2, b2, w3, b3, wd, bd]``, fp32 on the card, with a fan-in
+    scale; ``wd`` and ``bd`` None without a projection."""
+    dev = g.device
 
     def weight(*shape):
         fan_in = 1
@@ -135,33 +157,68 @@ def bottleneck_phase(fb, shape, mid: int, bands: int, forms):
     def bias(n):
         return torch.rand(n, generator=g, device=dev) - 0.5
 
+    ws = [weight(c, mid), bias(mid), weight(3, 3, mid, mid), bias(mid),
+          weight(mid, o), bias(o)]
+    return ws + ([weight(c, o), bias(o)] if down else [None, None])
+
+
+def cudnn_block(ws):
+    """The unfused bf16 block on the folded weights ``ws`` through cuDNN, as
+    a function of the channels_last NCHW input: the bf16 kernels' yardstick,
+    which the port never calls."""
+    bf = torch.bfloat16
+    cl = torch.channels_last
+    down = ws[6] is not None
+    w1c = ws[0].t()[:, :, None, None].to(bf).contiguous(memory_format=cl)
+    w2c = ws[2].permute(3, 2, 0, 1).to(bf).contiguous(memory_format=cl)
+    w3c = ws[4].t()[:, :, None, None].to(bf).contiguous(memory_format=cl)
+    b1c, b2c, b3c = (t.to(bf) for t in (ws[1], ws[3], ws[5]))
+    if down:
+        wdc = ws[6].t()[:, :, None, None].to(bf).contiguous(memory_format=cl)
+        bdc = ws[7].to(bf)
+
+    def block(xc):
+        y = F.relu(F.conv2d(xc, w1c, b1c))
+        y = F.relu(F.conv2d(y, w2c, b2c, padding=1))
+        y = F.conv2d(y, w3c, b3c)
+        res = F.conv2d(xc, wdc, bdc) if down else xc
+        return F.relu(y + res)
+
+    return block
+
+
+def bound(nbytes: int, ops: int, peak_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over their peak rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": ops}
+
+
+def bottleneck_phase(fb, shape, mid: int, bands: int, forms):
+    """K1 (``bands`` 0) or K2 against the plain version at ``shape``, in the
+    residual ``forms`` given, with timings and the bound."""
+    name = "K2" if bands else "K1"
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, h, w, c = shape
+    o = c
+    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
     results = {}
     for form in forms:
         down = form == "projection"
-        ws = [weight(c, mid), bias(mid), weight(3, 3, mid, mid), bias(mid),
-              weight(mid, o), bias(o)]
-        ws += [weight(c, o), bias(o)] if down else [None, None]
+        ws = folded_weights(g, c, mid, o, down)
         err, ref = compare(fb, x, ws, form, bands)
 
         # the unfused cuDNN block on the same folded weights (yardstick)
-        bf = torch.bfloat16
-        cl = torch.channels_last
         xc = x.permute(0, 3, 1, 2)
-        w1c = ws[0].t()[:, :, None, None].to(bf).contiguous(memory_format=cl)
-        w2c = ws[2].permute(3, 2, 0, 1).to(bf).contiguous(memory_format=cl)
-        w3c = ws[4].t()[:, :, None, None].to(bf).contiguous(memory_format=cl)
-        b1c, b2c, b3c = (t.to(bf) for t in (ws[1], ws[3], ws[5]))
-        if down:
-            wdc = ws[6].t()[:, :, None, None].to(bf).contiguous(
-                memory_format=cl)
-            bdc = ws[7].to(bf)
+        block = cudnn_block(ws)
 
         def library():
-            y = F.relu(F.conv2d(xc, w1c, b1c))
-            y = F.relu(F.conv2d(y, w2c, b2c, padding=1))
-            y = F.conv2d(y, w3c, b3c)
-            res = F.conv2d(xc, wdc, bdc) if down else xc
-            return F.relu(y + res)
+            return block(xc)
 
         lib_err = float((library().permute(0, 2, 3, 1).float()
                          - ref.float()).abs().max())
@@ -177,21 +234,171 @@ def bottleneck_phase(fb, shape, mid: int, bands: int, forms):
         nbytes = x.numel() * 2 + b * h * w * o * 2 + weight_bytes
         flops = 2 * b * h * w * (c * mid + 9 * mid * mid + mid * o
                                  + (c * o if down else 0))
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_BF16_FLOP_PER_S * 1e3
         results[form] = {
             "max_abs_err": err, "ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_max_abs_err": lib_err,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops,
+            **bound(nbytes, flops, PEAK_BF16_FLOP_PER_S),
         }
         say(f"{name} {form}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} "
             f"ms, cuDNN block {library_ms:.4f} ms (max abs err {lib_err:.4g}), "
             f"bound {results[form]['bound_ms']:.4f} ms "
             f"({results[form]['bound_by']})")
     return results
+
+
+def compare_int8(q8, x, ws, scales, what: str, bands: int = 1):
+    """The fused int8 bottleneck (K3) against its plain version on ``x`` with
+    the static ``scales``; returns the max abs error, raises past
+    INT8_TOL_ULPS bf16 ulps of the output's max |value|."""
+    out = q8.fused_bottleneck_int8_infer(x, *ws[:6], *scales, ws[6], ws[7],
+                                         bands=bands)
+    ref = q8.fused_bottleneck_int8_infer_plain(x, *ws[:6], *scales, ws[6],
+                                               ws[7])
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    scale = float(ref.float().abs().max())
+    tol = INT8_TOL_ULPS * 2.0 ** -8 * scale
+    say(f"K3 {what}: max abs err {err:.6g} (max |out| {scale:.6g}, "
+        f"tolerance {tol:.6g}), mismatched elements "
+        f"{float((diff > 0).float().mean()):.3g}")
+    if not (err <= tol and torch.isfinite(out).all()):
+        raise RuntimeError(f"K3 ({what}) disagrees with its plain version")
+    return err
+
+
+def unfused_int8_block(quant, x, ws, scales):
+    """The port's unfused int8 block (what ``Bottleneck._quant_infer`` runs
+    where K3's guard does not take the block) on the NHWC ``x``: K3's
+    yardstick."""
+    w1, b1, w2, b2, w3, b3, wd, bd = ws
+    dt = x.dtype
+    y = F.relu(quant.quant_conv(x, w1[None, None], bias=b1, out_dtype=dt,
+                                act_scale=scales[0]))
+    y = F.relu(quant.quant_conv(y, w2, (1, 1), ((1, 1), (1, 1)), b2, dt,
+                                act_scale=scales[1]))
+    y = quant.quant_conv(y, w3[None, None], bias=b3, out_dtype=dt,
+                         act_scale=scales[2])
+    res = x if wd is None else quant.quant_conv(
+        x, wd[None, None], bias=bd, out_dtype=dt, act_scale=scales[0])
+    return F.relu(y + res)
+
+
+def int8_phase(q8, quant):
+    """K3 against its plain version at the layer1 and the layer2 shape
+    (identity residual, as on the path), with timings and the bound."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    results = []
+    for shape, mid, bands in K3_SHAPES:
+        b, h, w, c = shape
+        x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        ws = folded_weights(g, c, mid, c, False)
+        # static scales as a calibration would leave them: the |max| of each
+        # conv's input over the first samples, through the float block
+        xs = x[:8].float()
+        y1 = F.relu(xs @ ws[0] + ws[1])
+        y2 = F.relu(F.conv2d(y1.permute(0, 3, 1, 2), ws[2].permute(3, 2, 0, 1),
+                             ws[3], padding=1))
+        scales = [t.abs().max() / 127 for t in (x.float(), y1, y2)]
+        what = f"{tuple(shape)}, mid {mid}, bands {bands}"
+        err = compare_int8(q8, x, ws, scales, what, bands)
+        lib = unfused_int8_block(quant, x, ws, scales)
+        ref = q8.fused_bottleneck_int8_infer_plain(x, *ws[:6], *scales)
+        lib_err = float((lib.float() - ref.float()).abs().max())
+        del lib, ref
+        # the kernel on operands prepared once, and the whole wrapper, which
+        # quantizes and orders the weights in some sixty small launches a
+        # call and so can be bound by the host
+        operands = q8.kernel_operands(*ws[:6], *scales)
+        kernel_ms = time_cuda_ms(lambda: q8.launch(x, operands), 20)
+        wrapper_ms = time_cuda_ms(
+            lambda: q8.fused_bottleneck_int8_infer(x, *ws[:6], *scales,
+                                                   bands=bands), 20)
+        plain_ms = time_cuda_ms(
+            lambda: q8.fused_bottleneck_int8_infer_plain(x, *ws[:6], *scales),
+            3, warmup=1)
+        library_ms = time_cuda_ms(
+            lambda: unfused_int8_block(quant, x, ws, scales), 3, warmup=1)
+        # the wrapper's inputs: x in bf16, the folded weights in fp32
+        weight_bytes = sum(t.numel() * 4 for t in ws if t is not None) + 12
+        nbytes = x.numel() * 2 + b * h * w * c * 2 + weight_bytes
+        ops = 2 * b * h * w * (c * mid + 9 * mid * mid + mid * c)
+        results.append({
+            "shape": list(shape) + [mid], "max_abs_err": err, "ms": kernel_ms,
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library_max_abs_err": lib_err,
+            **bound(nbytes, ops, PEAK_INT8_OP_PER_S)})
+        say(f"K3 {what}: kernel {kernel_ms:.4f} ms (wrapper with the "
+            f"weights' quantization {wrapper_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, unfused int8 block {library_ms:.4f} ms (max "
+            f"abs err "
+            f"{lib_err:.4g}: it divides by the scale where K3 multiplies by "
+            f"its reciprocal), bound {results[-1]['bound_ms']:.4f} ms "
+            f"({results[-1]['bound_by']})")
+    return results
+
+
+def stem_phase(st):
+    """K4 against its plain version at the stem's shape, with timings and
+    the bound. The library time is ATen's affine, ReLU and max_pool2d plus
+    the unfused cuDNN block."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, h2, w2, c = K4_SHAPE
+    h, w = h2 // 2, w2 // 2
+    x = torch.randn(K4_SHAPE, generator=g, device=dev).to(torch.bfloat16)
+    g1 = torch.rand(c, generator=g, device=dev) + 0.5
+    t1 = torch.rand(c, generator=g, device=dev) - 0.5
+    ws = folded_weights(g, c, K4_MID, K4_OUT, True)
+    out = st.fused_stem_bottleneck(x, g1, t1, *ws)
+    ref = st.fused_stem_bottleneck_plain(x, g1, t1, *ws)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    scale = float(ref.float().abs().max())
+    tol = KERNEL_TOL_ULPS * 2.0 ** -8 * scale
+    say(f"K4 {K4_SHAPE} -> {tuple(out.shape)}: max abs err {err:.6g} (max "
+        f"|out| {scale:.6g}, tolerance {tol:.6g}), mismatched elements "
+        f"{float((diff > 0).float().mean()):.3g}")
+    if not (err <= tol and torch.isfinite(out).all()
+            and tuple(out.shape) == (b, h, w, K4_OUT)):
+        raise RuntimeError("K4 disagrees with its plain version")
+
+    xc = x.permute(0, 3, 1, 2)
+    gc = g1.to(torch.bfloat16)[None, :, None, None]
+    tc = t1.to(torch.bfloat16)[None, :, None, None]
+    block = cudnn_block(ws)
+
+    def library():
+        return block(F.max_pool2d(F.relu(xc * gc + tc), 3, 2, 1))
+
+    lib_err = float((library().permute(0, 2, 3, 1).float()
+                     - ref.float()).abs().max())
+    del ref, out
+    kernel_ms = time_cuda_ms(
+        lambda: st.fused_stem_bottleneck(x, g1, t1, *ws), 20)
+    plain_ms = time_cuda_ms(
+        lambda: st.fused_stem_bottleneck_plain(x, g1, t1, *ws), 5)
+    library_ms = time_cuda_ms(library, 20)
+    weight_bytes = sum(t.numel() * (2 if t.dim() > 1 else 4) for t in ws)
+    nbytes = x.numel() * 2 + b * h * w * K4_OUT * 2 + weight_bytes + 8 * c
+    # the products, 2 operations per raw pixel and channel for the affine
+    # and 9 comparisons per pooled one
+    flops = (2 * b * h * w * (c * K4_MID + 9 * K4_MID * K4_MID
+                              + K4_MID * K4_OUT + c * K4_OUT)
+             + 2 * x.numel() + 9 * b * h * w * c)
+    result = {"shape": list(K4_SHAPE) + [K4_MID, K4_OUT], "max_abs_err": err,
+              "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+              "library_max_abs_err": lib_err,
+              **bound(nbytes, flops, PEAK_BF16_FLOP_PER_S)}
+    say(f"K4: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, ATen "
+        f"affine + ReLU + max_pool2d + cuDNN block {library_ms:.4f} ms (max "
+        f"abs err {lib_err:.4g}), bound {result['bound_ms']:.4f} ms "
+        f"({result['bound_by']})")
+    return result
 
 
 def compare_splat(bs, uv, feat, size: int, distance: float, what: str):
@@ -237,14 +444,10 @@ def splat_phase(bs):
         # about 40 fp32 operations per (pixel, bone) for the two weights,
         # 3 per output element
         flops = b * size * size * 20 * (40 + 3 * c)
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
         results.append({
             "shape": [b, size, c, distance], "max_abs_err": err,
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops,
+            **bound(nbytes, flops, PEAK_FP32_FLOP_PER_S),
         })
         say(f"K5 {what}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {results[-1]['bound_ms']:.4f} ms "
@@ -275,46 +478,60 @@ def check_outputs(out: dict, b: int) -> None:
             raise RuntimeError(f"{key}: {tuple(t.shape)}")
 
 
-def kernel_counts(fb, bs):
-    """Launches so far of (K1, K2, K5)."""
+def kernel_counts(mods) -> tuple:
+    """Launches so far of (K1, K2, K3, K4, K5)."""
+    fb, q8, st, bs = mods
     f = fb.fused_bottleneck_infer
-    return (f.launches, f.streamed_launches, bs.bone_splat.launches)
+    return (f.launches, f.streamed_launches,
+            q8.fused_bottleneck_int8_infer.launches,
+            st.fused_stem_bottleneck.launches, bs.bone_splat.launches)
 
 
-def drive(fb, bs, name: str, infer, images: dict):
+def reset_counts(mods) -> None:
+    fb, q8, st, bs = mods
+    f = fb.fused_bottleneck_infer
+    f.launches = f.streamed_launches = 0
+    q8.fused_bottleneck_int8_infer.launches = 0
+    st.fused_stem_bottleneck.launches = 0
+    bs.bone_splat.launches = 0
+
+
+def drive(mods, name: str, infer, images: dict):
     """The main path in configuration ``name``: the kernels' counts set to
     0, one request per batch size, the counts read; every output and the
     launches per request checked. Returns the outputs and the counts."""
-    f = fb.fused_bottleneck_infer
-    f.launches = f.streamed_launches = bs.bone_splat.launches = 0
+    reset_counts(mods)
     outputs, per_request = {}, {}
     for b in BATCHES:
-        before = kernel_counts(fb, bs)
+        before = kernel_counts(mods)
         outputs[b] = infer(images[b])
         torch.cuda.synchronize()
         per_request[b] = tuple(
-            n - m for n, m in zip(kernel_counts(fb, bs), before))
-    launches = kernel_counts(fb, bs)
-    say(f"main path, configuration {name}: launches per request of (K1, K2, "
-        f"K5) {per_request}, total {launches}")
+            n - m for n, m in zip(kernel_counts(mods), before))
+    launches = kernel_counts(mods)
+    say(f"main path, configuration {name}: launches per request of "
+        f"{KERNELS} {per_request}, total {launches}")
     for b in BATCHES:
         check_outputs(outputs[b], b)
         if per_request[b] != EXPECTED[name]:
             raise RuntimeError(
-                f"configuration {name}, batch {b}: (K1, K2, K5) ran "
+                f"configuration {name}, batch {b}: {KERNELS} ran "
                 f"{per_request[b]} times, expected {EXPECTED[name]}")
     return outputs, launches
 
 
-def serve_phase(fb, bs):
-    """Requests through the bf16 flagship in configurations A and B, checked
-    against fp32."""
+def serve_phase(mods):
+    """Requests through the bf16 flagship in configurations A, B and C,
+    checked against fp32."""
     from dir_tpu_torch.models import dir as dir_module
     from dir_tpu_torch.models.dir import DIR
-    from dir_tpu_torch.serve import (CONFIG_B, build_flagship,
+    from dir_tpu_torch.ops.quant import scale_from_amax
+    from dir_tpu_torch.serve import (CONFIG_B, CONFIG_C, build_flagship,
+                                     calibrate_static_scales,
                                      condition_random_, make_infer)
     from dir_tpu_torch.train import evaluate
 
+    fb, q8, _, bs = mods
     model, cfg, mano_l, mano_r = build_flagship(
         device="cuda", dtype="bfloat16", fused_bottleneck_eval=True, seed=0)
     # random weights make the bf16-vs-fp32 comparison ill-conditioned
@@ -326,23 +543,40 @@ def serve_phase(fb, bs):
         m.load_state_dict(model.state_dict(), strict=True)
         return m.to("cuda").eval()
 
-    # configuration B on configuration A's weights: same state_dict
-    model_b = variant(**CONFIG_B)
-    infers = {"A": make_infer(model, mano_l, mano_r),
-              "B": make_infer(model_b, mano_l, mano_r)}
+    # configurations B and C on configuration A's weights: same state_dict
+    models = {"A": model, "B": variant(**CONFIG_B), "C": variant(**CONFIG_C)}
+    infers = {n: make_infer(m, mano_l, mano_r) for n, m in models.items()}
     rng = np.random.RandomState(0)
     images = {b: rng.randn(b, 256, 256, 3).astype(np.float32)
               for b in BATCHES}
     say(f"flagship built: backbone {cfg.backbone_layers}, dtype {cfg.dtype}, "
         f"{sum(p.numel() for p in model.parameters())} parameters; "
-        f"configuration B = {CONFIG_B}")
+        f"configuration B = {CONFIG_B}; configuration C = {CONFIG_C}")
+
+    # C's static scales: one calibration forward over a seeded batch of its
+    # own, through the unfused int8 route (no K3 launch)
+    reset_counts(mods)
+    calibrate_static_scales(
+        models["C"], np.random.RandomState(1).randn(
+            CALIBRATION_BATCH, 256, 256, 3).astype(np.float32), mano_l,
+        mano_r)
+    torch.cuda.synchronize()
+    if any(kernel_counts(mods)):
+        raise RuntimeError(f"calibration launched {kernel_counts(mods)}")
+    n_scales = sum(len(m.filled) for m in models["C"].modules()
+                   if hasattr(m, "filled"))
+    say(f"configuration C calibrated on {CALIBRATION_BATCH} seeded images: "
+        f"{n_scales} activation scales, no kernel launched")
 
     # what the fused blocks and the splat received, kept from the last
     # request (batch 64): forward pre-hooks on the blocks, and a recording
     # wrapper in the place where the model looks the splat up
-    blocks = {"A": {f"layer1_{i}": model.backbone.layer1[i] for i in (1, 2)},
-              "B": {f"layer2_{i}": model_b.backbone.layer2[i]
-                    for i in (1, 2, 3)}}
+    blocks = {"A": {f"layer1_{i}": models["A"].backbone.layer1[i]
+                    for i in (1, 2)},
+              "B": {f"layer2_{i}": models["B"].backbone.layer2[i]
+                    for i in (1, 2, 3)},
+              "C": {"layer1_2 (int8)": models["C"].backbone.layer1[2],
+                    "layer2_3 (int8)": models["C"].backbone.layer2[3]}}
     received, splats = {}, []
     hooks = [blk.register_forward_pre_hook(
         lambda _, args, name=name: received.__setitem__(name, args[0]))
@@ -353,18 +587,19 @@ def serve_phase(fb, bs):
         return bs.bone_splat(uv, feat, size, distance)
 
     outputs, launches = {}, {}
-    outputs["A"], launches["A"] = drive(fb, bs, "A", infers["A"], images)
+    outputs["A"], launches["A"] = drive(mods, "A", infers["A"], images)
     dir_module.bone_splat = recording_splat
     try:
-        outputs["B"], launches["B"] = drive(fb, bs, "B", infers["B"], images)
+        outputs["B"], launches["B"] = drive(mods, "B", infers["B"], images)
     finally:
         dir_module.bone_splat = bs.bone_splat
+    outputs["C"], launches["C"] = drive(mods, "C", infers["C"], images)
     for h in hooks:
         h.remove()
 
     # the kernels against their plain versions on what the path fed them at
     # batch 64
-    served_err = {"K1": 0.0, "K2": 0.0, "K5": 0.0}
+    served_err = dict.fromkeys(KERNELS, 0.0)
     with torch.inference_mode():
         for name, group in blocks.items():
             for block_name, blk in group.items():
@@ -373,11 +608,19 @@ def serve_phase(fb, bs):
                     raise RuntimeError(f"{block_name} received batch "
                                        f"{x.shape[0]}")
                 xn = x.to(blk.dtype).permute(0, 2, 3, 1)
-                bands = K2_BANDS if name == "B" else 0
-                err, _ = compare(fb, xn, blk.folded_weights(),
-                                 f"{block_name} at batch {BATCHES[-1]} "
-                                 "(served activations)", bands)
-                key = "K2" if bands else "K1"
+                what = (f"{block_name} at batch {BATCHES[-1]} (served "
+                        "activations)")
+                if name == "C":
+                    scales = [scale_from_amax(getattr(blk.quant_stats, n))
+                              for n in ("conv1_in", "conv2_in", "conv3_in")]
+                    err = compare_int8(q8, xn, blk.folded_weights(), scales,
+                                       what, blk.quant_fused_l2_bands
+                                       if xn.shape[1] < 64 else 1)
+                    key = "K3"
+                else:
+                    bands = K2_BANDS if name == "B" else 0
+                    err, _ = compare(fb, xn, blk.folded_weights(), what, bands)
+                    key = "K2" if bands else "K1"
                 served_err[key] = max(served_err[key], err)
         if [t[0].shape[0] for t in splats[-4:]] != [BATCHES[-1]] * 4:
             raise RuntimeError("the last four splats are not batch "
@@ -390,8 +633,8 @@ def serve_phase(fb, bs):
                 f"{distance})")
             served_err["K5"] = max(served_err["K5"], err)
         # the visualization map, where the model returns it
-        vis = model_b(torch.from_numpy(images[8]).cuda(), mano_l, mano_r,
-                      want_vis=True)["vis_img_feat"]
+        vis = models["B"](torch.from_numpy(images[8]).cuda(), mano_l, mano_r,
+                          want_vis=True)["vis_img_feat"]
         if tuple(vis.shape) != (8, 32, 32, 1280) or not torch.isfinite(vis).all():
             raise RuntimeError(f"vis_img_feat: {tuple(vis.shape)}")
     del received, splats, vis
@@ -409,13 +652,15 @@ def serve_phase(fb, bs):
     camera = torch.tensor([[500.0, 0, 128], [0, 500, 128], [0, 0, 1]],
                           device="cuda")
     depth = torch.tensor([0.0, 0.0, 0.5], device="cuda")
-    worst = {"A": {}, "B": {}}
-    metrics = {}
+    worst = {n: {} for n in CONFIGS}
+    metrics = {n: {} for n in CONFIGS}
     for b in BATCHES:
         ref = ref_infer(images[b])["stages"][-1]
-        for name, fin in (("bf16 A", outputs["A"][b]["stages"][-1]),
-                          ("bf16 B", outputs["B"][b]["stages"][-1]),
-                          ("bf16 unfused", bf16_infer(images[b])["stages"][-1])):
+        finals = {n: outputs[n][b]["stages"][-1] for n in CONFIGS}
+        named = [("bf16 A", finals["A"]), ("bf16 B", finals["B"]),
+                 ("int8 C", finals["C"]),
+                 ("bf16 unfused", bf16_infer(images[b])["stages"][-1])]
+        for name, fin in named:
             errs = {k: float((fin[k] - ref[k]).abs().max()) * 1e3
                     for k in keys}
             # mean per-joint error of the worst sample, both hands
@@ -426,36 +671,41 @@ def serve_phase(fb, bs):
                 + f"; worst sample's mean joint err {mpjpe:.4f} mm")
             if name != "bf16 unfused":
                 worst[name[-1]][b] = max(errs.values())
-        a_fin, b_fin = (outputs[n][b]["stages"][-1] for n in "AB")
-        say(f"batch {b}: B vs A, final stage max abs diff "
-            + ", ".join(f"{k[3:]} {float((b_fin[k] - a_fin[k]).abs().max()) * 1e3:.4f} mm"
-                        for k in keys))
-        # bf16 B against the fp32 forward through the port's metrics, the
-        # fp32 meshes standing in for the ground truth, 0.5 m from the camera
-        acc = evaluate.batch_metrics(
-            b_fin["pd_mesh_xyz_left"] + depth,
-            b_fin["pd_mesh_xyz_right"] + depth, b_fin["pd_offset"],
-            ref["pd_mesh_xyz_left"] + depth, ref["pd_mesh_xyz_right"] + depth,
-            camera.expand(b, 3, 3), *jregs,
-            torch.ones(b, device="cuda"))
-        summary = evaluate.summarize({k: float(v) for k, v in acc.items()})
-        metrics[b] = {"mpjpe_mm": summary["joint_mean_all_mm"],
-                      "mpvpe_mm": summary["vert_mean_all_mm"]}
-        say(f"batch {b}: bf16 B vs fp32 through batch_metrics: MPJPE "
-            f"{metrics[b]['mpjpe_mm']:.4f} mm, MPVPE "
-            f"{metrics[b]['mpvpe_mm']:.4f} mm")
-    for name in "AB":
-        if max(worst[name].values()) > SERVE_TOL_MM:
+        for other in "BC":
+            say(f"batch {b}: {other} vs A, final stage max abs diff "
+                + ", ".join(
+                    f"{k[3:]} "
+                    f"{float((finals[other][k] - finals['A'][k]).abs().max()) * 1e3:.4f} mm"
+                    for k in keys))
+        # each configuration against the fp32 forward through the port's
+        # metrics, the fp32 meshes standing in for the ground truth, 0.5 m
+        # from the camera
+        for name, fin in finals.items():
+            acc = evaluate.batch_metrics(
+                fin["pd_mesh_xyz_left"] + depth,
+                fin["pd_mesh_xyz_right"] + depth, fin["pd_offset"],
+                ref["pd_mesh_xyz_left"] + depth,
+                ref["pd_mesh_xyz_right"] + depth,
+                camera.expand(b, 3, 3), *jregs, torch.ones(b, device="cuda"))
+            summary = evaluate.summarize({k: float(v) for k, v in acc.items()})
+            metrics[name][b] = {"mpjpe_mm": summary["joint_mean_all_mm"],
+                                "mpvpe_mm": summary["vert_mean_all_mm"]}
+        say(f"batch {b}: vs fp32 through batch_metrics: " + "; ".join(
+            f"{n} MPJPE {m[b]['mpjpe_mm']:.4f} mm, MPVPE "
+            f"{m[b]['mpvpe_mm']:.4f} mm" for n, m in metrics.items()))
+    for name in CONFIGS:
+        limit = SERVE_TOL_MM_INT8 if name == "C" else SERVE_TOL_MM
+        if max(worst[name].values()) > limit:
             raise RuntimeError(
-                f"configuration {name}: bf16 path off the fp32 forward by "
-                f"{max(worst[name].values()):.4f} mm > {SERVE_TOL_MM}")
+                f"configuration {name}: off the fp32 forward by "
+                f"{max(worst[name].values()):.4f} mm > {limit}")
     del ref_infer, bf16_infer
 
     # request latency on the host clock, image upload included; the host's
     # cores are shared, so the spread is printed beside the median
-    latency = {"A": {}, "B": {}}
+    latency = {n: {} for n in CONFIGS}
     for b in BATCHES:
-        for name in "AB":
+        for name in CONFIGS:
             times = []
             for _ in range(LATENCY_REPS):
                 t = time.perf_counter()
@@ -479,6 +729,9 @@ def main() -> int:
     from dir_tpu_torch.ops import bone_splat as bs
     from dir_tpu_torch.ops import cuda_build
     from dir_tpu_torch.ops import fused_bottleneck as fb
+    from dir_tpu_torch.ops import fused_bottleneck_int8 as q8
+    from dir_tpu_torch.ops import fused_stem_bottleneck as st
+    from dir_tpu_torch.ops import quant
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -491,6 +744,8 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     reports = cuda_build.build_many([(fb.NAME, ()),
+                                     (q8.NAME, q8.NVCC_EXTRA_FLAGS),
+                                     (st.NAME, ()),
                                      (bs.NAME, bs.NVCC_EXTRA_FLAGS)])
     for name, log in reports.items():
         for line in log.splitlines():
@@ -498,43 +753,65 @@ def main() -> int:
                 say(f"ptxas {name}: " + line.split("'")[1])
             elif "registers" in line or "spill" in line or "smem" in line:
                 say(f"ptxas {name}:   {line.strip()}")
-    say("K1, K2 (fused_bottleneck) and K5 (bone_splat) built")
+    say("K1, K2 (fused_bottleneck), K3 (fused_bottleneck_int8), K4 "
+        "(fused_stem_bottleneck) and K5 (bone_splat) built")
 
+    mods = (fb, q8, st, bs)
     k1 = bottleneck_phase(fb, K1_SHAPE, K1_MID, 0, ("identity", "projection"))
     k2 = bottleneck_phase(fb, K2_SHAPE, K2_MID, K2_BANDS, ("identity",))
+    k3 = int8_phase(q8, quant)
+    k4 = stem_phase(st)
     k5 = splat_phase(bs)
-    launches, served_err, worst_mm, latency, metrics = serve_phase(fb, bs)
+    launches, served_err, worst_mm, latency, metrics = serve_phase(mods)
 
     # times and bound at the path's shape (the identity form for K1 and K2,
-    # the larger stage for K5); the error is the worst of that check and the
-    # served inputs' check; launches are the main path's, A's and B's runs
-    def entry(name, source, replaces, index, at_shape, shape, **more):
+    # the layer1 shape for K3, the larger stage for K5); the error is the
+    # worst of that check and the served inputs' check; launches are the
+    # main path's, over A's, B's and C's runs. K4 is on no path: its entry
+    # holds its standalone check and 0 launches.
+    def entry(key, name, source, replaces, at_shape, **more):
+        index = KERNELS.index(key)
+        if (any(EXPECTED[n][index] for n in CONFIGS)
+                and not all(launches[n][index] for n in CONFIGS
+                            if EXPECTED[n][index])):
+            raise RuntimeError(f"{key} is on the main path and was not "
+                               "launched there")
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches["A"][index] + launches["B"][index],
-            "launches_by_configuration": {n: launches[n][index] for n in "AB"},
-            "max_abs_err": max(at_shape["max_abs_err"],
-                               served_err[f"K{(1, 2, 5)[index]}"]),
+            "launches": sum(launches[n][index] for n in CONFIGS),
+            "launches_by_configuration": {n: launches[n][index]
+                                          for n in CONFIGS},
+            "max_abs_err": max(at_shape["max_abs_err"], served_err[key]),
             "ms": at_shape["ms"], "plain_ms": at_shape["plain_ms"],
             "bound_ms": at_shape["bound_ms"],
             "bound_by": at_shape["bound_by"],
-            "library_ms": at_shape["library_ms"], "shape": shape, **more}
+            "library_ms": at_shape["library_ms"],
+            "shape": at_shape.get("shape"),
+            **{k: at_shape[k] for k in ("wrapper_ms",) if k in at_shape},
+            **more}
 
+    k1["identity"]["shape"] = list(K1_SHAPE) + [K1_MID]
+    k2["identity"]["shape"] = list(K2_SHAPE) + [K2_MID]
     kernels = {"kernels": [
-        entry("fused_bottleneck", "dir_tpu_torch/csrc/fused_bottleneck.cu",
-              "dir_tpu/ops/pallas_bottleneck.py:119", 0, k1["identity"],
-              list(K1_SHAPE) + [K1_MID], projection=k1["projection"]),
-        entry("fused_bottleneck_streamed",
+        entry("K1", "fused_bottleneck",
               "dir_tpu_torch/csrc/fused_bottleneck.cu",
-              "dir_tpu/ops/pallas_bottleneck.py:130", 1, k2["identity"],
-              list(K2_SHAPE) + [K2_MID]),
-        entry("bone_splat", "dir_tpu_torch/csrc/bone_splat.cu",
-              "dir_tpu/ops/pallas_bone_splat.py:36", 2, k5[0],
-              k5[0]["shape"], stage1=k5[1]),
+              "dir_tpu/ops/pallas_bottleneck.py:119", k1["identity"],
+              projection=k1["projection"]),
+        entry("K2", "fused_bottleneck_streamed",
+              "dir_tpu_torch/csrc/fused_bottleneck.cu",
+              "dir_tpu/ops/pallas_bottleneck.py:130", k2["identity"]),
+        entry("K3", "fused_bottleneck_int8",
+              "dir_tpu_torch/csrc/fused_bottleneck_int8.cu",
+              "dir_tpu/ops/pallas_bottleneck.py:316", k3[0], layer2=k3[1]),
+        entry("K4", "fused_stem_bottleneck",
+              "dir_tpu_torch/csrc/fused_stem_bottleneck.cu",
+              "dir_tpu/ops/pallas_bottleneck.py:169", k4),
+        entry("K5", "bone_splat", "dir_tpu_torch/csrc/bone_splat.cu",
+              "dir_tpu/ops/pallas_bone_splat.py:36", k5[0], stage1=k5[1]),
     ]}
     say(f"serve: worst final-stage err {worst_mm} mm; latency ms {latency}; "
-        f"bf16 B vs fp32 {metrics}")
+        f"vs fp32 through batch_metrics {metrics}")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

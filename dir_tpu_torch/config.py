@@ -58,11 +58,24 @@ class ModelConfig:
     # package reads this from the FUSED_L2_BANDS environment variable at
     # import; the port takes it as a field and reads no environment.
     fused_l2_bands: int = 0
-    # Int8 serving options (not ported yet: ROADMAP A13).
+    # Int8 serving options (ops/quant.py), inference only, same parameters
+    # either way: the backbone's bottleneck convs, the decoder's Residual
+    # convs, and the nine auxiliary convs (stem, attention pools, fusion
+    # convs, final convs, seg/dense heads).
     quant_backbone_eval: bool = False
     quant_decoder_eval: bool = False
     quant_aux_eval: bool = False
+    # Calibrated (static) activation scales instead of each batch's |max|;
+    # needs one calibration forward (serve.calibrate_static_scales).
     quant_static: bool = False
+    # With quant_backbone_eval and quant_static, the fused int8 bottleneck
+    # kernel (ops/fused_bottleneck_int8.py) takes the stride-1 blocks with
+    # >= 128 input channels at >= 4096 positions (layer1_1, layer1_2) and,
+    # with quant_fused_l2_bands > 0, at >= 1024 positions (layer2_1..3, as
+    # bands=N). The JAX package reads these from the QUANT_FUSED and
+    # QUANT_FUSED_L2 environment variables at import.
+    quant_fused: bool = False
+    quant_fused_l2_bands: int = 0
     # MANO contraction precision of the JAX package; the port always
     # runs MANO in full fp32.
     mano_precision: str = "highest"

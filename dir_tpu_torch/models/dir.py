@@ -28,6 +28,7 @@ from dir_tpu_torch.models.resnet import ResNetPyramid
 from dir_tpu_torch.models.transformer import STE
 from dir_tpu_torch.ops.bone_splat import bone_splat, bone_splat_plain
 from dir_tpu_torch.ops.projection import ortho_project
+from dir_tpu_torch.ops.quant import ActAmax, module_quant_conv
 from dir_tpu_torch.ops.sampling import grid_sample_nhwc
 from dir_tpu_torch.ops.splat_conv import fused_splat_conv
 
@@ -77,8 +78,10 @@ class AttentionPool(ConvHead):
     """Spatial-attention pooling: a sigmoid map from Conv3x3-BN-ReLU-Conv1x1,
     then the attention-weighted mean of the features, in fp32."""
 
-    def __init__(self, ch: int, dtype=torch.float32):
-        super().__init__(ch, ch // 2, 1, dtype=dtype)
+    def __init__(self, ch: int, dtype=torch.float32,
+                 quant_eval: bool = False, quant_static: bool = False):
+        super().__init__(ch, ch // 2, 1, dtype=dtype, quant_eval=quant_eval,
+                         quant_static=quant_static)
 
     def forward(self, feat: torch.Tensor) -> torch.Tensor:
         a = torch.sigmoid(_head32(super().forward(feat)))
@@ -94,8 +97,9 @@ class InitRegressor(nn.Module):
         super().__init__()
         c4 = cfg.backbone_dims[3]
         self.root_joint = cfg.root_joint
-        self.attention_left = AttentionPool(c4, dtype)
-        self.attention_right = AttentionPool(c4, dtype)
+        q, qs = cfg.quant_aux_eval, cfg.quant_static
+        self.attention_left = AttentionPool(c4, dtype, q, qs)
+        self.attention_right = AttentionPool(c4, dtype, q, qs)
         self.mano_left = nn.Linear(c4, cfg.mano_param_dim)
         self.mano_right = nn.Linear(c4, cfg.mano_param_dim)
         self.offset = nn.Linear(c4, 3)
@@ -182,6 +186,9 @@ class RefineStage(nn.Module):
             nn.Conv2d(2 * 20 * jdim, in_ch, 3, padding=1),
             nn.BatchNorm2d(in_ch), nn.ReLU(), nn.Conv2d(in_ch, in_ch, 1))
         self.regressor = RegressorOffset(cfg)
+        # cfg.quant_aux_eval: the 1x1 fusion conv in int8
+        self.quant_stats = (ActAmax(("fusion_conv2_in",))
+                            if cfg.quant_aux_eval else None)
 
     def forward(self, img_feat: torch.Tensor, prev: dict, pair: ManoModel,
                 want_vis: bool = False):
@@ -232,7 +239,12 @@ class RefineStage(nn.Module):
             if want_vis:
                 feats["vis_img_feat"] = splat_l + splat_r
         fused = torch.relu(bn(fused))
-        feats["img_feat"] = conv2d(fused, conv2, dt)
+        if cfg.quant_aux_eval and not self.training:
+            feats["img_feat"] = _nchw(module_quant_conv(
+                self.quant_stats, "fusion_conv2", _nhwc(fused), conv2,
+                static=cfg.quant_static, out_dtype=dt))
+        else:
+            feats["img_feat"] = conv2d(fused, conv2, dt)
         return result, feats
 
 
@@ -244,17 +256,22 @@ class Decoder(nn.Module):
         super().__init__()
         d = cfg.decoder_dim
         _, c2, c3, c4 = cfg.backbone_dims
-        self.skip_layer4 = Residual(c3, d, dtype)
-        self.fusion_layer4 = Residual(c4 + d, d, dtype)
-        self.enhance_layer4 = Residual(2 * d, d, dtype)
-        self.skip_layer3 = Residual(c2, d, dtype)
-        self.fusion_layer3 = Residual(2 * d, d, dtype)
-        self.enhance_layer3 = Residual(2 * d, d, dtype)
+        q = {"quant_eval": cfg.quant_decoder_eval,
+             "quant_static": cfg.quant_static}
+        self.skip_layer4 = Residual(c3, d, dtype, **q)
+        self.fusion_layer4 = Residual(c4 + d, d, dtype, **q)
+        self.enhance_layer4 = Residual(2 * d, d, dtype, **q)
+        self.skip_layer3 = Residual(c2, d, dtype, **q)
+        self.fusion_layer3 = Residual(2 * d, d, dtype, **q)
+        self.enhance_layer3 = Residual(2 * d, d, dtype, **q)
         self.projecter_4 = RefineStage(cfg, d, cfg.stage_distances[0], dtype)
         self.projecter_3 = RefineStage(cfg, d, cfg.stage_distances[1], dtype)
-        self.conv_final = ConvHead(d, d, d, first_bias=False, dtype=dtype)
-        self.seg = ConvHead(d, d // 2, 3, dtype=dtype)
-        self.dense = ConvHead(d, d // 2, 3, dtype=dtype)
+        qa = {"quant_eval": cfg.quant_aux_eval,
+              "quant_static": cfg.quant_static}
+        self.conv_final = ConvHead(d, d, d, first_bias=False, dtype=dtype,
+                                   quant_second=True, **qa)
+        self.seg = ConvHead(d, d // 2, 3, dtype=dtype, **qa)
+        self.dense = ConvHead(d, d // 2, 3, dtype=dtype, **qa)
 
     def forward(self, feats, init_out: dict, pair: ManoModel,
                 want_vis: bool = False) -> dict:
@@ -297,16 +314,16 @@ class DIR(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if (cfg.quant_backbone_eval or cfg.quant_decoder_eval
-                or cfg.quant_aux_eval):
-            raise NotImplementedError(
-                "int8 serving is not ported yet (ROADMAP A13)")
         self.cfg = cfg
         dtype = getattr(torch, cfg.dtype)
-        self.backbone = ResNetPyramid(cfg.backbone_layers, dtype,
-                                      fused_eval=cfg.fused_bottleneck_eval,
-                                      stem=cfg.backbone_stem,
-                                      fused_l2_bands=cfg.fused_l2_bands)
+        self.backbone = ResNetPyramid(
+            cfg.backbone_layers, dtype,
+            fused_eval=cfg.fused_bottleneck_eval, stem=cfg.backbone_stem,
+            fused_l2_bands=cfg.fused_l2_bands,
+            quant_eval=cfg.quant_backbone_eval,
+            quant_static=cfg.quant_static, quant_stem=cfg.quant_aux_eval,
+            quant_fused=cfg.quant_fused,
+            quant_fused_l2_bands=cfg.quant_fused_l2_bands)
         self.init_regressor = InitRegressor(cfg, dtype)
         self.decoder = Decoder(cfg, dtype)
 

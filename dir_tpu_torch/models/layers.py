@@ -14,6 +14,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dir_tpu_torch.ops.quant import (ActAmax, module_act_scale,
+                                     module_quant_conv, quant_conv)
+
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype) -> torch.Tensor:
     """``conv`` applied in ``dtype``: input, weight and bias cast."""
@@ -56,10 +59,19 @@ class Residual(nn.Module):
     ``cat([x, pair])``, which is exactly what the JAX package's
     concat-free pair path computes."""
 
-    def __init__(self, in_ch: int, out_ch: int, dtype=torch.float32):
+    def __init__(self, in_ch: int, out_ch: int, dtype=torch.float32,
+                 quant_eval: bool = False, quant_static: bool = False):
         super().__init__()
         half = out_ch // 2
         self.dtype = dtype
+        # Inference-only int8 path (ops/quant.py): each conv runs
+        # s8 x s8 -> s32 on its own parameters; the pre-activation BNs stay
+        # floating point.
+        self.quant_eval = quant_eval
+        self.quant_static = quant_static
+        names = ("conv1_in", "conv2_in", "conv3_in") + (
+            ("skip_in",) if in_ch != out_ch else ())
+        self.quant_stats = ActAmax(names) if quant_eval else None
         self.bn1 = nn.BatchNorm2d(in_ch)
         self.conv1 = ConvHolder(in_ch, half, 1)
         self.bn2 = nn.BatchNorm2d(half)
@@ -73,6 +85,8 @@ class Residual(nn.Module):
                 pair: torch.Tensor | None = None) -> torch.Tensor:
         if pair is not None:
             x = torch.cat([x, pair], dim=1)
+        if self.quant_eval and not self.training:
+            return self._quant_infer(x)
         dt = self.dtype
         skip = (x if self.skip_layer is None
                 else conv2d(x, self.skip_layer.conv, dt))
@@ -80,6 +94,34 @@ class Residual(nn.Module):
         out = conv2d(torch.relu(self.bn2(out)), self.conv2.conv, dt)
         out = conv2d(torch.relu(self.bn3(out)), self.conv3.conv, dt)
         return out + skip
+
+
+    def _quant_infer(self, x: torch.Tensor) -> torch.Tensor:
+        """Int8 execution on the block's own parameters, on the NHWC view of
+        ``x`` (the pair concat has materialized). The BNs are computed in
+        fp32 and then cast, in the JAX package's order."""
+        dt = self.dtype
+        xn = x.permute(0, 2, 3, 1)
+
+        def bn_inf(bn, v):
+            mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+            return ((v.float() - bn.running_mean) * mul + bn.bias).to(dt)
+
+        def qc(name, holder, v, k3=False):
+            sc = module_act_scale(self.quant_stats, f"{name}_in", v,
+                                  self.quant_static)
+            return quant_conv(v, holder.conv.weight.permute(2, 3, 1, 0),
+                              padding=((1, 1), (1, 1)) if k3 else "SAME",
+                              bias=holder.conv.bias.float(), out_dtype=dt,
+                              act_scale=sc)
+
+        skip = (xn.to(dt) if self.skip_layer is None
+                else qc("skip", self.skip_layer, xn))
+        out = qc("conv1", self.conv1, torch.relu(bn_inf(self.bn1, xn)))
+        out = qc("conv2", self.conv2, torch.relu(bn_inf(self.bn2, out)),
+                 k3=True)
+        out = qc("conv3", self.conv3, torch.relu(bn_inf(self.bn3, out)))
+        return (out + skip).permute(0, 3, 1, 2)
 
 
 class MLP1d(nn.Sequential):
@@ -103,15 +145,36 @@ class ConvHead(nn.Sequential):
     heads and the decoder's final conv; keys ``0``, ``1`` and ``3``)."""
 
     def __init__(self, in_ch: int, mid: int, out: int,
-                 first_bias: bool = True, dtype=torch.float32):
+                 first_bias: bool = True, dtype=torch.float32,
+                 quant_eval: bool = False, quant_static: bool = False,
+                 quant_second: bool = False):
         super().__init__(nn.Conv2d(in_ch, mid, 3, padding=1, bias=first_bias),
                          nn.BatchNorm2d(mid), nn.ReLU(),
                          nn.Conv2d(mid, out, 1))
         self.dtype = dtype
+        # Inference-only int8 path (cfg.quant_aux_eval): the 3x3 conv with
+        # the BN folded in; the 1x1 conv stays floating point (a few logits
+        # into a sigmoid or a loss) unless quant_second (the decoder's
+        # final conv, which feeds the heads).
+        self.quant_eval = quant_eval
+        self.quant_static = quant_static
+        self.quant_second = quant_second
+        names = ("conv1_in",) + (("conv2_in",) if quant_second else ())
+        self.quant_stats = ActAmax(names) if quant_eval else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self[1](conv2d(x, self[0], self.dtype)))
-        return conv2d(x, self[3], self.dtype)
+        dt = self.dtype
+        if not (self.quant_eval and not self.training):
+            x = torch.relu(self[1](conv2d(x, self[0], dt)))
+            return conv2d(x, self[3], dt)
+        y = torch.relu(module_quant_conv(
+            self.quant_stats, "conv1", x.to(dt).permute(0, 2, 3, 1), self[0],
+            static=self.quant_static, out_dtype=dt, bn=self[1]))
+        if self.quant_second:
+            y = module_quant_conv(self.quant_stats, "conv2", y, self[3],
+                                  static=self.quant_static, out_dtype=dt)
+            return y.permute(0, 3, 1, 2)
+        return conv2d(y.permute(0, 3, 1, 2), self[3], dt)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

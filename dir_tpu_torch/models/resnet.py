@@ -18,6 +18,9 @@ import torch.nn.functional as F
 
 from dir_tpu_torch.models.layers import conv2d
 from dir_tpu_torch.ops.fused_bottleneck import fold_bn, fused_bottleneck_infer
+from dir_tpu_torch.ops.fused_bottleneck_int8 import fused_bottleneck_int8_infer
+from dir_tpu_torch.ops.quant import (ActAmax, module_act_scale,
+                                     module_quant_conv, quant_conv)
 
 
 class Bottleneck(nn.Module):
@@ -25,7 +28,9 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, dtype=torch.float32,
-                 fused_eval: bool = False, fused_l2_bands: int = 0):
+                 fused_eval: bool = False, fused_l2_bands: int = 0,
+                 quant_eval: bool = False, quant_static: bool = False,
+                 quant_fused: bool = False, quant_fused_l2_bands: int = 0):
         super().__init__()
         out = planes * self.expansion
         self.stride = stride
@@ -35,6 +40,19 @@ class Bottleneck(nn.Module):
         # fused_l2_bands > 0 extends the guard to the 32x32 (layer2) shape.
         self.fused_eval = fused_eval
         self.fused_l2_bands = fused_l2_bands
+        # Inference-only int8 path (ops/quant.py) for the blocks the fused
+        # guard above does not take: BN-folded convs as s8 x s8 -> s32, the
+        # activation scales live (dynamic) or calibrated (quant_static).
+        # With quant_static, quant_fused sends the blocks its guard takes
+        # through the fused int8 kernel (ops/fused_bottleneck_int8.py), and
+        # quant_fused_l2_bands > 0 extends that guard to the layer2 shape.
+        self.quant_eval = quant_eval
+        self.quant_static = quant_static
+        self.quant_fused = quant_fused
+        self.quant_fused_l2_bands = quant_fused_l2_bands
+        names = ("conv1_in", "conv2_in", "conv3_in") + (
+            ("down_in",) if downsample else ())
+        self.quant_stats = ActAmax(names) if quant_eval else None
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
@@ -56,6 +74,8 @@ class Bottleneck(nn.Module):
                      or (spatial >= 1024 and self.fused_l2_bands))):
             return self._fused_infer(
                 x, bands=0 if spatial >= 4096 else self.fused_l2_bands)
+        if self.quant_eval and not self.training:
+            return self._quant_infer(x)
         dt = self.dtype
         out = torch.relu(self.bn1(conv2d(x, self.conv1, dt)))
         out = torch.relu(self.bn2(conv2d(out, self.conv2, dt)))
@@ -89,6 +109,47 @@ class Bottleneck(nn.Module):
         y = fused_bottleneck_infer(x.to(self.dtype).permute(0, 2, 3, 1),
                                    *self.folded_weights(), bands=bands)
         return y.permute(0, 3, 1, 2)
+
+
+    def _quant_infer(self, x: torch.Tensor) -> torch.Tensor:
+        """Run the block's convs int8-quantized on the NHWC view of ``x``:
+        BN folded into each conv, the folded kernels quantized per output
+        channel, the activations per tensor; the residual add and the ReLU
+        stay in the trunk dtype."""
+        dt, st = self.dtype, (self.stride, self.stride)
+        xn = x.permute(0, 2, 3, 1)
+        w1, b1, w2, b2, w3, b3, wd, bd = self.folded_weights()
+
+        def scale(name, v):
+            return module_act_scale(self.quant_stats, name, v,
+                                    self.quant_static)
+
+        # The fused int8 kernel: static scales only (a dynamic scale is a
+        # reduction over the whole batch), never while calibrating (the
+        # unfused route records the maxes), stride 1, >= 128 input channels;
+        # layer1 at >= 4096 positions, layer2 through quant_fused_l2_bands.
+        spatial = x.shape[2] * x.shape[3]
+        if (self.quant_fused and self.quant_static and self.stride == 1
+                and x.shape[1] >= 128 and not self.quant_stats.calibrating
+                and (spatial >= 4096
+                     or (spatial >= 1024 and self.quant_fused_l2_bands))):
+            y = fused_bottleneck_int8_infer(
+                xn.to(dt), w1, b1, w2, b2, w3, b3, scale("conv1_in", xn),
+                scale("conv2_in", xn), scale("conv3_in", xn), wd, bd,
+                bands=1 if spatial >= 4096 else self.quant_fused_l2_bands)
+            return y.permute(0, 3, 1, 2)
+
+        out = torch.relu(quant_conv(xn, w1[None, None], bias=b1, out_dtype=dt,
+                                    act_scale=scale("conv1_in", xn)))
+        out = torch.relu(quant_conv(out, w2, st, ((1, 1), (1, 1)), b2, dt,
+                                    act_scale=scale("conv2_in", out)))
+        out = quant_conv(out, w3[None, None], bias=b3, out_dtype=dt,
+                         act_scale=scale("conv3_in", out))
+        identity = xn.to(dt)
+        if self.downsample is not None:
+            identity = quant_conv(xn, wd[None, None], st, "SAME", bd, dt,
+                                  act_scale=scale("down_in", xn))
+        return torch.relu(out + identity).permute(0, 3, 1, 2)
 
 
 def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
@@ -137,12 +198,19 @@ class ResNetPyramid(nn.Module):
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
                  dtype=torch.float32, fused_eval: bool = False,
-                 stem: str = "conv7", fused_l2_bands: int = 0):
+                 stem: str = "conv7", fused_l2_bands: int = 0,
+                 quant_eval: bool = False, quant_static: bool = False,
+                 quant_stem: bool = False, quant_fused: bool = False,
+                 quant_fused_l2_bands: int = 0):
         super().__init__()
         if stem not in ("conv7", "s2d"):
             raise ValueError(f"unknown stem {stem!r}")
         self.dtype = dtype
         self.stem = stem
+        # Int8 stem conv with bn1 folded in (cfg.quant_aux_eval).
+        self.quant_stem = quant_stem
+        self.quant_static = quant_static
+        self.quant_stats = ActAmax(("conv1_in",)) if quant_stem else None
         self.conv1 = (nn.Conv2d(3, 64, 7, 2, 3, bias=False) if stem == "conv7"
                       else nn.Conv2d(12, 64, 4, 1, 0, bias=False))
         self.bn1 = nn.BatchNorm2d(64)
@@ -157,18 +225,37 @@ class ResNetPyramid(nn.Module):
                 seq.append(Bottleneck(inplanes, planes,
                                       stride if b == 0 else 1, down,
                                       dtype=dtype, fused_eval=fused_eval,
-                                      fused_l2_bands=fused_l2_bands))
+                                      fused_l2_bands=fused_l2_bands,
+                                      quant_eval=quant_eval,
+                                      quant_static=quant_static,
+                                      quant_fused=quant_fused,
+                                      quant_fused_l2_bands=quant_fused_l2_bands))
                 inplanes = planes * Bottleneck.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*seq))
+
+    def _quant_stem(self, x: torch.Tensor) -> torch.Tensor:
+        """The stem conv in int8 with bn1 folded in, on the NHWC image;
+        returns the channels_last NCHW map before the ReLU."""
+        if self.stem == "s2d":
+            x, stride, pad = space_to_depth(x), (1, 1), ((2, 1), (2, 1))
+        else:
+            stride, pad = (2, 2), ((3, 3), (3, 3))
+        y = module_quant_conv(self.quant_stats, "conv1", x, self.conv1,
+                              stride, pad, static=self.quant_static,
+                              out_dtype=self.dtype, bn=self.bn1)
+        return y.permute(0, 3, 1, 2)
 
     def forward(self, x: torch.Tensor) -> list:
         """x: (B, 3, H, W); returns four channels_last NCHW maps."""
         x = x.to(self.dtype)
-        if self.stem == "s2d":
-            x = space_to_depth(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-            x = F.pad(x, (2, 1, 2, 1))
-        x = x.contiguous(memory_format=torch.channels_last)
-        x = torch.relu(self.bn1(conv2d(x, self.conv1, self.dtype)))
+        if self.quant_stem and not self.training:
+            x = torch.relu(self._quant_stem(x.permute(0, 2, 3, 1)))
+        else:
+            if self.stem == "s2d":
+                x = space_to_depth(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+                x = F.pad(x, (2, 1, 2, 1))
+            x = x.contiguous(memory_format=torch.channels_last)
+            x = torch.relu(self.bn1(conv2d(x, self.conv1, self.dtype)))
         x = F.max_pool2d(x, 3, 2, 1)
         x = x.contiguous(memory_format=torch.channels_last)
         feats = []

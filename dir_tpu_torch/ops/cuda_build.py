@@ -9,6 +9,7 @@ kernels build in the time of the slowest.
 
 from __future__ import annotations
 
+import glob
 import os
 import shutil
 import subprocess
@@ -38,9 +39,12 @@ def _tmp_path(name: str) -> str:
 
 def start_build(name: str, extra_flags=()):
     """Start ``nvcc`` on ``csrc/<name>.cu`` if its library is missing or
-    older than the source; returns the process, or None when up to date."""
+    older than the source or any shared header (``csrc/*.cuh``); returns
+    the process, or None when up to date."""
     lib, src = library_path(name), source_path(name)
-    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+    newest = max(os.path.getmtime(f) for f in
+                 [src, *glob.glob(os.path.join(CSRC_DIR, "*.cuh"))])
+    if os.path.exists(lib) and os.path.getmtime(lib) >= newest:
         return None
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     os.makedirs(BUILD_DIR, exist_ok=True)

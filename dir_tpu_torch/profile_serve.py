@@ -1,15 +1,17 @@
 """Where one serving request's time goes on the card.
 
 Builds the bf16 flagship (seeded random weights, fused bottleneck on) in
-configuration A (the default: factored splat conv) or B (``--config B``:
+configuration A (the default: factored splat conv), B (``--config B``:
 fused bottleneck at layer2 too, materialized bone splat through its
-kernel), warms it up, then traces one request at each of batch 1, 8 and 64 with
+kernel) or C (``--config C``: int8 static serving with the fused int8
+bottleneck, calibrated here on 8 seeded images), warms it up, then traces
+one request at each of batch 1, 8 and 64 with
 ``torch.profiler`` and prints, per batch, one JSON line: the request's
 wall time, the device's busy time and idle share over it, the number of
 kernel launches, and the 15 kernels that take the most device time. Run
 from the repository root on a machine with a CUDA device:
 
-    python -m dir_tpu_torch.profile_serve [--config {A,B}]
+    python -m dir_tpu_torch.profile_serve [--config {A,B,C}]
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from dir_tpu_torch.serve import CONFIG_B, build_flagship, make_infer
+from dir_tpu_torch.serve import (CONFIG_B, CONFIG_C, build_flagship,
+                                 calibrate_static_scales, make_infer)
 
 BATCHES = (1, 8, 64)
 TOP = 15
@@ -72,15 +75,20 @@ def profile_request(infer, img: np.ndarray) -> dict:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--config", choices=("A", "B"), default="A")
+    parser.add_argument("--config", choices=("A", "B", "C"), default="A")
     args = parser.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model, _, mano_l, mano_r = build_flagship(
-        device="cuda", seed=0, **(CONFIG_B if args.config == "B" else {}))
+        device="cuda", seed=0,
+        **{"A": {}, "B": CONFIG_B, "C": CONFIG_C}[args.config])
     infer = make_infer(model, mano_l, mano_r)
     print(torch.cuda.get_device_name(0), flush=True)
     rng = np.random.RandomState(0)
+    if args.config == "C":
+        calibrate_static_scales(
+            model, rng.randn(8, 256, 256, 3).astype(np.float32), mano_l,
+            mano_r)
     for b in BATCHES:
         img = rng.randn(b, 256, 256, 3).astype(np.float32)
         print(json.dumps({"config": args.config,

@@ -16,10 +16,18 @@ from dir_tpu_torch.mano.assets import (ManoModel, fix_left_shapedirs,
                                        load_mano_pair, synthetic_mano)
 from dir_tpu_torch.models.dir import DIR
 from dir_tpu_torch.models.gcn import PGraphConv
+from dir_tpu_torch.ops import quant
 
 # The keyword arguments of :func:`build_flagship` that select configuration B.
 CONFIG_B = {"fused_l2_bands": 4, "fused_splat_conv": False,
             "use_pallas_splat": True}
+# ... and configuration C: int8 static serving of the backbone, the decoder
+# and the auxiliary convs, with the fused int8 bottleneck at layer1 and
+# layer2. It needs :func:`calibrate_static_scales` before the first request.
+CONFIG_C = {"fused_bottleneck_eval": False, "quant_backbone_eval": True,
+            "quant_decoder_eval": True, "quant_aux_eval": True,
+            "quant_static": True, "quant_fused": True,
+            "quant_fused_l2_bands": 4}
 
 # Linear layers that regress MANO parameters / the offset start near zero.
 _HEAD_NAMES = ("mano_left", "mano_right", "offset")
@@ -130,7 +138,11 @@ def flagship_mano(assets_dir: str = "./assets/mano"):
 def build_flagship(device=None, dtype: str = "bfloat16",
                    fused_bottleneck_eval: bool = True, seed: int = 0,
                    fused_l2_bands: int = 0, fused_splat_conv: bool = True,
-                   use_pallas_splat: bool = False):
+                   use_pallas_splat: bool = False,
+                   quant_backbone_eval: bool = False,
+                   quant_decoder_eval: bool = False,
+                   quant_aux_eval: bool = False, quant_static: bool = False,
+                   quant_fused: bool = False, quant_fused_l2_bands: int = 0):
     """The flagship DIR model (ResNet-50) in eval mode with seeded random
     weights, and the MANO pair of :func:`flagship_mano`.
 
@@ -138,7 +150,10 @@ def build_flagship(device=None, dtype: str = "bfloat16",
     factored splat conv). ``fused_l2_bands=4, fused_splat_conv=False,
     use_pallas_splat=True`` is configuration B: the fused bottleneck at
     layer2 as well, and the materialized bone splat through its kernel.
-    Both hold the same parameters, so one ``state_dict`` loads into either.
+    ``**CONFIG_C`` is configuration C: int8 static serving (the fused
+    bf16 kernel off, the fused int8 kernel on), which serves only after
+    :func:`calibrate_static_scales`. All hold the same parameters, so one
+    ``state_dict`` loads into any of them.
 
     Runs on CUDA unless ``device`` names another device; raises when no
     card is present and none was named. Returns
@@ -148,10 +163,29 @@ def build_flagship(device=None, dtype: str = "bfloat16",
     cfg = ModelConfig(dtype=dtype, fused_bottleneck_eval=fused_bottleneck_eval,
                       fused_l2_bands=fused_l2_bands,
                       fused_splat_conv=fused_splat_conv,
-                      use_pallas_splat=use_pallas_splat)
+                      use_pallas_splat=use_pallas_splat,
+                      quant_backbone_eval=quant_backbone_eval,
+                      quant_decoder_eval=quant_decoder_eval,
+                      quant_aux_eval=quant_aux_eval,
+                      quant_static=quant_static, quant_fused=quant_fused,
+                      quant_fused_l2_bands=quant_fused_l2_bands)
     model = random_init_(DIR(cfg), seed).to(dev).eval()
     mano_l, mano_r = (m.to(dev) for m in flagship_mano())
     return model, cfg, mano_l, mano_r
+
+
+def calibrate_static_scales(model: DIR, img, mano_left: ManoModel,
+                            mano_right: ManoModel) -> DIR:
+    """One calibration forward of an int8 model on its own device: every
+    int8 conv input's ``|max|`` over ``img`` ((B, H, W, 3) float32 array or
+    tensor) is folded into the model's scales for static serving. The maxes
+    accumulate over calls. Returns the model, in eval mode."""
+    dev = next(model.parameters()).device
+    if isinstance(img, np.ndarray):
+        img = torch.from_numpy(img)
+    return quant.calibrate_static_scales(
+        model.eval(), img.to(dev, torch.float32), mano_left.to(dev),
+        mano_right.to(dev))
 
 
 def make_infer(model: DIR, mano_left: ManoModel, mano_right: ManoModel):

@@ -6,6 +6,11 @@ The port's own copy of the mapping table of the reference torch layout
 transforms, so that ``DIR.load_state_dict(..., strict=True)`` takes the
 result. Leaves absent from the trees (Residual skip convs of same-width
 blocks) are skipped; STE block 0 is not in the table.
+
+State carried across as well: the JAX package's ``quant_stats`` collection
+(the calibrated activation maxes of int8 static serving) and the port's
+``ActAmax`` buffers are turned into each other by the same kind of table
+(:func:`quant_mapping`), so both packages can serve with the same scales.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ class Entry(NamedTuple):
     torch_key: str          # state_dict key
     path: Tuple[str, ...]   # path in the JAX tree
     kind: str               # transform kind
-    collection: str         # "params" | "batch_stats"
+    collection: str         # "params" | "batch_stats" | "quant_stats"
 
 
 def _conv2d(tkey, path, bias=True):
@@ -224,3 +229,86 @@ def adapt_stem_s2d(state_dict: Dict[str, torch.Tensor]
             w4 = stem_weights_to_s2d(w.permute(2, 3, 1, 0).cpu().numpy())
             out[key] = w4.permute(3, 2, 0, 1).contiguous().to(w.device)
     return out
+
+
+def _amax(tpre: str, fpre: Tuple[str, ...], names, torch_names=None):
+    torch_names = torch_names or names
+    return [Entry(f"{tpre}.quant_stats.{t}", fpre + (n,), "raw", "quant_stats")
+            for n, t in zip(names, torch_names)]
+
+
+def quant_mapping(backbone_layers=(3, 4, 6, 3)) -> List[Entry]:
+    """Every (buffer name in the port, path in ``quant_stats``) pair: one
+    calibrated ``|max|`` per int8 conv input, all three int8 options on."""
+    out = _amax("backbone", ("backbone",), ("conv1_in",))
+    for s, blocks in enumerate(backbone_layers):
+        for b in range(blocks):
+            names = ("conv1_in", "conv2_in", "conv3_in") + (
+                ("down_in",) if b == 0 else ())
+            out += _amax(f"backbone.layer{s + 1}.{b}",
+                         ("backbone", f"layer{s + 1}_{b}"), names)
+    for side in ("left", "right"):
+        out += _amax(f"init_regressor.attention_{side}",
+                     ("init_regressor", f"attention_{side}"), ("conv1_in",))
+    d = ("decoder",)
+    for res in ("skip_layer4", "fusion_layer4", "enhance_layer4",
+                "skip_layer3", "fusion_layer3", "enhance_layer3"):
+        out += _amax(f"decoder.{res}", d + (res,),
+                     ("conv1_in", "conv2_in", "conv3_in", "skip_in"))
+    for stage in ("projecter_4", "projecter_3"):
+        out += _amax(f"decoder.{stage}", d + (stage,), ("fusion_conv2_in",))
+    out += _amax("decoder.conv_final", d,
+                 ("final_conv1_in", "final_conv2_in"),
+                 ("conv1_in", "conv2_in"))
+    for head in ("seg", "dense"):
+        out += _amax(f"decoder.{head}", d + (head,), ("conv1_in",))
+    return out
+
+
+def quant_stats_to_amax(quant_stats: dict, backbone_layers=(3, 4, 6, 3)
+                        ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``quant_stats`` tree (nested dicts of numpy
+    scalars) -> ``{buffer name: fp32 scalar tensor}``; leaves the tree does
+    not hold (options that were off) are skipped."""
+    out = {}
+    for e in quant_mapping(backbone_layers):
+        leaf = _get(quant_stats, e.path)
+        if leaf is not None:
+            out[e.torch_key] = torch.tensor(float(np.asarray(leaf)),
+                                            dtype=torch.float32)
+    return out
+
+
+def load_amax(model: torch.nn.Module, amax: Dict[str, torch.Tensor]) -> None:
+    """Store calibrated maxes (from :func:`quant_stats_to_amax`) in the
+    ``ActAmax`` buffers of ``model``; a name the model does not have
+    raises."""
+    for key, value in amax.items():
+        path, name = key.rsplit(".", 1)
+        try:
+            stats = model.get_submodule(path)
+            getattr(stats, name)
+        except AttributeError as err:
+            raise KeyError(f"the model has no int8 scale {key!r}") from err
+        stats.set_(name, value)
+
+
+def amax_to_quant_stats(model: torch.nn.Module,
+                        backbone_layers=(3, 4, 6, 3)) -> dict:
+    """The calibrated maxes of ``model`` as the JAX package's
+    ``quant_stats`` tree (nested dicts of numpy fp32 scalars); buffers no
+    calibration has filled are left out."""
+    tree: dict = {}
+    for e in quant_mapping(backbone_layers):
+        path, name = e.torch_key.rsplit(".", 1)
+        try:
+            stats = model.get_submodule(path)
+        except AttributeError:
+            continue
+        if name not in stats.filled:
+            continue
+        node = tree
+        for k in e.path[:-1]:
+            node = node.setdefault(k, {})
+        node[e.path[-1]] = np.float32(getattr(stats, name).item())
+    return tree

@@ -1,6 +1,6 @@
 """The port's backbone options against dir_tpu on the CPU: the layer2 guard
 of the fused bottleneck (``fused_l2_bands``, the JAX package's
-``FUSED_L2_BANDS``) and the space-to-depth stem.
+``FUSED_L2_BANDS``), the space-to-depth stem, and the int8 backbone.
 """
 
 import os
@@ -18,6 +18,7 @@ from dir_tpu.train import checkpoint as ck
 from dir_tpu_torch import weights as tweights
 from dir_tpu_torch.models import resnet as tresnet
 from dir_tpu_torch.ops import fused_bottleneck as fb
+from dir_tpu_torch.ops import quant as tquant
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_port_helpers import (load_into, max_err,  # noqa: E402
@@ -123,3 +124,32 @@ def test_s2d_pyramid_equals_conv7_on_carried_weights(backbone):
         assert max_err(a, b) < 1e-5
         assert max_err(a, jf) < 1e-5
         assert max_err(a, r) < 1e-5
+
+
+def test_int8_pyramid_matches_jax(backbone):
+    """``quant_eval`` on the whole backbone, dynamic scales: every bottleneck
+    conv runs int8 (5 blocks x 3 convs + 4 projections; the stem stays
+    floating point), against the JAX pyramid with the same flag."""
+    x, variables, ref = backbone
+    jfeats = jresnet.ResNetPyramid(layers=LAYERS, quant_eval=True).apply(
+        variables, jnp.asarray(x), train=False)
+    calls = []
+    real = tquant.conv_int8
+    try:
+        tquant.conv_int8 = lambda *a, **k: calls.append(1) or real(*a, **k)
+        feats, counts = _port_pyramid(x, variables, quant_eval=True)
+    finally:
+        tquant.conv_int8 = real
+    assert len(calls) == 19 and counts == (0, 0)
+    # c1 (one block) agrees to fp32 rounding: measured 4.8e-7. From layer2
+    # on, an fp32 ulp upstream has moved int8 values by one step (about 1e-2
+    # of a conv input's range, rescaled by the next batch's own |max|) and
+    # the difference is carried along: measured 3.4e-3, 6.4e-3 and 7.9e-3 on
+    # c2..c4 (maps up to 1.8), beside int8's own error against the
+    # floating-point pyramid of 2.5e-2, 1.9e-2, 1.4e-2 and 1.2e-2. Block by
+    # block on equal inputs the two agree to fp32 rounding
+    # (tests/test_torch_port_quant.py).
+    bounds = (1e-5, 3e-2, 3e-2, 3e-2)
+    for out, jf, r, bound in zip(feats, jfeats, ref, bounds):
+        assert max_err(out, jf) < bound
+        assert max_err(out, r) < 0.1

@@ -1,7 +1,8 @@
 """Tests of the port that need the card: the CUDA kernels K1, K2 (the fused
-bottleneck, whole-halo and streamed) and K5 (the bone splat) against their
-plain versions, and the bf16 forward with the kernels against the fp32
-forward.
+bottleneck, whole-halo and streamed), K3 (the fused int8 bottleneck), K4
+(stem + layer1_0) and K5 (the bone splat) against their plain versions, the
+unfused int8 conv's integers against the CPU's, and the bf16 and int8
+forwards with the kernels against the fp32 forward.
 
 They import nothing of JAX, so they run on a machine without it. Each
 decides inside the test whether a card is present and skips without
@@ -16,6 +17,9 @@ import torch
 
 from dir_tpu_torch.ops import bone_splat as bs
 from dir_tpu_torch.ops import fused_bottleneck as fb
+from dir_tpu_torch.ops import fused_bottleneck_int8 as q8
+from dir_tpu_torch.ops import fused_stem_bottleneck as st
+from dir_tpu_torch.ops import quant
 
 
 def _cuda_or_skip() -> torch.device:
@@ -248,3 +252,188 @@ def test_flagship_config_b_matches_fp32_on_card():
         err_mm = float((out["stages"][-1][key]
                         - ref["stages"][-1][key]).abs().max()) * 1e3
         assert err_mm < 5.0, (key, err_mm)
+
+
+def _int8_inputs(seed, shape, mid, o, down, dev):
+    """x (bf16), folded weights and three static scales (the input's own
+    |max|, and plausible ones for the two intermediates)."""
+    rng = np.random.RandomState(seed)
+    ws = _folded(rng, shape[-1], mid, o, down, dev)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    scales = [x.float().abs().max() / 127,
+              torch.tensor(3.0 / 127, device=dev),
+              torch.tensor(3.0 / 127, device=dev)]
+    return x, ws, scales
+
+
+def _int8_mismatch(out, ref):
+    """(share of elements that differ, max abs error) of two bf16 maps."""
+    diff = (out.float() - ref.float()).abs()
+    return float((diff > 0).float().mean()), float(diff.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,mid,o,down,bands", [
+    ((2, 64, 64, 256), 64, 256, False, 1),    # the layer1 shape
+    ((2, 64, 64, 256), 64, 256, True, 1),
+    ((2, 32, 32, 512), 128, 512, False, 4),   # the layer2 shape
+    ((2, 32, 32, 512), 128, 512, True, 4),
+    ((1, 10, 20, 32), 32, 32, True, 5),       # ragged tiles on both axes
+    ((3, 9, 17, 64), 32, 96, True, 3),
+    ((1, 12, 30, 160), 64, 160, False, 2),
+])
+def test_cuda_int8_kernel_matches_plain(shape, mid, o, down, bands):
+    """K3 against its plain version on the card. The s32 sums are exact and
+    the roundings are the same ops in both, so the two are bit-equal."""
+    dev = _cuda_or_skip()
+    x, ws, scales = _int8_inputs(9, shape, mid, o, down, dev)
+    f = q8.fused_bottleneck_int8_infer
+    before = f.launches
+    out = f(x, *ws[:6], *scales, ws[6], ws[7], bands=bands)
+    assert f.launches == before + 1
+    ref = q8.fused_bottleneck_int8_infer_plain(x, *ws[:6], *scales, ws[6],
+                                               ws[7])
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert torch.isfinite(out).all()
+    share, err = _int8_mismatch(out, ref)
+    assert share == 0.0, (share, err)
+
+
+@pytest.mark.gpu
+def test_cuda_int8_kernel_refuses_what_it_does_not_take():
+    dev = _cuda_or_skip()
+    x, ws, scales = _int8_inputs(10, (1, 8, 16, 32), 32, 32, False, dev)
+    f = q8.fused_bottleneck_int8_infer
+    before = f.launches
+    with pytest.raises(TypeError):       # a dynamic scale (none given)
+        f(x, *ws[:6], None, scales[1], scales[2])
+    with pytest.raises(TypeError):       # fp32 activations
+        f(x.float(), *ws[:6], *scales)
+    with pytest.raises(ValueError):      # bands must divide H
+        f(x, *ws[:6], *scales, bands=3)
+    with pytest.raises(ValueError):      # not NHWC-contiguous
+        f(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), *ws[:6],
+          *scales)
+    with pytest.raises(ValueError):      # a scale on another device
+        f(x, *ws[:6], scales[0].cpu(), scales[1], scales[2])
+    x16, ws16, _ = _int8_inputs(10, (1, 8, 16, 16), 16, 16, False, dev)
+    with pytest.raises(ValueError):      # widths not multiples of 32
+        f(x16, *ws16[:6], *scales)
+    assert f.launches == before          # nothing launched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,mid,o", [
+    ((2, 128, 128, 64), 64, 256),        # the stem's shape
+    ((1, 16, 24, 16), 16, 32),           # small
+    ((3, 24, 36, 32), 32, 48),           # ragged tiles on both axes
+])
+def test_cuda_stem_kernel_matches_plain(shape, mid, o):
+    """K4 against its plain version: the pooled map is bit-equal by
+    construction, the bottleneck within K1's tolerance."""
+    dev = _cuda_or_skip()
+    rng = np.random.RandomState(11)
+    c = shape[-1]
+    ws = _folded(rng, c, mid, o, True, dev)
+    g1 = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)).to(dev)
+    t1 = torch.from_numpy(rng.uniform(-0.5, 0.5, c).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    f = st.fused_stem_bottleneck
+    before = f.launches
+    out = f(x, g1, t1, *ws)
+    assert f.launches == before + 1
+    ref = st.fused_stem_bottleneck_plain(x, g1, t1, *ws)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    assert out.shape == ref.shape == (shape[0], shape[1] // 2, shape[2] // 2, o)
+    assert torch.isfinite(out).all()
+    # four bf16 ulps of the output scale, as for K1
+    scale = float(ref.float().abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= 4 * 2 ** -8 * scale
+
+
+@pytest.mark.gpu
+def test_cuda_stem_kernel_refuses_what_it_does_not_take():
+    dev = _cuda_or_skip()
+    rng = np.random.RandomState(12)
+    ws = _folded(rng, 16, 16, 32, True, dev)
+    g1 = torch.ones(16, device=dev)
+    t1 = torch.zeros(16, device=dev)
+    f = st.fused_stem_bottleneck
+    before = f.launches
+    with pytest.raises(ValueError):      # pooled height 6 is no multiple of 4
+        f(torch.zeros(1, 12, 16, 16, device=dev, dtype=torch.bfloat16), g1,
+          t1, *ws)
+    with pytest.raises(TypeError):       # fp32 activations
+        f(torch.zeros(1, 16, 16, 16, device=dev), g1, t1, *ws)
+    with pytest.raises(ValueError):      # a weight on the CPU
+        f(torch.zeros(1, 16, 16, 16, device=dev, dtype=torch.bfloat16),
+          g1.cpu(), t1, *ws)
+    assert f.launches == before          # nothing launched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,k,o,stride,padding", [
+    ((2, 16, 16, 64), 1, 32, (1, 1), "SAME"),
+    ((2, 16, 16, 64), 3, 40, (2, 2), ((1, 1), (1, 1))),
+    ((1, 32, 32, 3), 7, 64, (2, 2), ((3, 3), (3, 3))),   # K = 147
+    ((1, 16, 16, 12), 4, 64, (1, 1), ((2, 1), (2, 1))),
+    ((1, 2, 2, 8), 1, 8, (1, 1), "SAME"),                # 4 rows
+])
+def test_cuda_int8_conv_gives_the_cpu_integers(shape, k, o, stride, padding):
+    """``conv_s32`` on the card (through ``torch._int_mm``, operands padded
+    to its size rules) against the same call on the CPU: bit-equal."""
+    dev = _cuda_or_skip()
+    rng = np.random.RandomState(13)
+    xq = torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8))
+    wq = torch.from_numpy(
+        rng.randint(-127, 128, (k, k, shape[-1], o)).astype(np.int8))
+    want = quant.conv_s32(xq, wq, stride, padding)
+    got = quant.conv_s32(xq.to(dev), wq.to(dev), stride, padding)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_flagship_config_c_matches_fp32_on_card():
+    """A cut-depth flagship in configuration C (int8 static serving, the
+    fused int8 bottleneck at layer1_1 and layer2_1) against the fp32 forward
+    on the same weights: K3 twice a request, K1/K2/K5 never; calibration
+    launches no K3. Int8's own error on seeded random weights: the limit is
+    chip_smoke.py's."""
+    dev = _cuda_or_skip()
+    from dir_tpu_torch.config import ModelConfig
+    from dir_tpu_torch.models.dir import DIR
+    from dir_tpu_torch.serve import (CONFIG_C, calibrate_static_scales,
+                                     condition_random_, flagship_mano,
+                                     make_infer, random_init_)
+
+    layers = (2, 2, 1, 1)
+    ml, mr = (m.to(dev) for m in flagship_mano())
+    ref_model = random_init_(DIR(ModelConfig(backbone_layers=layers)),
+                             seed=0).to(dev)
+    condition_random_(ref_model, ml, mr, seed=0)
+    model = DIR(ModelConfig(backbone_layers=layers, dtype="bfloat16",
+                            **CONFIG_C)).to(dev)
+    model.load_state_dict(ref_model.state_dict(), strict=True)
+    img = np.random.RandomState(1).randn(2, 256, 256, 3).astype(np.float32)
+    f, q = fb.fused_bottleneck_infer, q8.fused_bottleneck_int8_infer
+
+    def counts():
+        return (f.launches, f.streamed_launches, q.launches,
+                bs.bone_splat.launches)
+
+    before = counts()
+    calibrate_static_scales(model, img, ml, mr)
+    assert counts() == before
+    out = make_infer(model, ml, mr)(img)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 2, 0)
+    ref = make_infer(ref_model, ml, mr)(img)
+    for key in ("pd_joint_xyz_left", "pd_joint_xyz_right"):
+        err_mm = float((out["stages"][-1][key]
+                        - ref["stages"][-1][key]).abs().max()) * 1e3
+        print(key, err_mm)
+        assert err_mm < 40.0, (key, err_mm)
