@@ -15,7 +15,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   3. hold each kernel against its plain PyTorch version at the main path's
      shapes (K1 in both residual forms at the layer1 shape, K2 at the
      layer2 shape, K3 at both, K4 at the stem's shape, K5 at both refine
-     stages' sizes), and time the kernel, the plain version and, for the
+     stages' sizes), and time the kernel (K1, K2 and K3 on operands prepared
+     once, with the whole wrapper beside), the plain version and, for the
      bottlenecks, the unfused library block (cuDNN for the bf16 kernels, the
      port's own unfused int8 block for K3: yardsticks the fused routes never
      call);
@@ -223,7 +224,11 @@ def bottleneck_phase(fb, shape, mid: int, bands: int, forms):
         lib_err = float((library().permute(0, 2, 3, 1).float()
                          - ref.float()).abs().max())
         del ref
-        kernel_ms = time_cuda_ms(
+        # the kernel on operands prepared once, and the whole wrapper, which
+        # also lays the weights out (one gather) on every call
+        operands = fb.kernel_operands(*ws, bands=bands)
+        kernel_ms = time_cuda_ms(lambda: fb.launch(x, operands, bands), 20)
+        wrapper_ms = time_cuda_ms(
             lambda: fb.fused_bottleneck_infer(x, *ws, bands=bands), 20)
         plain_ms = time_cuda_ms(
             lambda: fb.fused_bottleneck_infer_plain(x, *ws), 5)
@@ -235,12 +240,13 @@ def bottleneck_phase(fb, shape, mid: int, bands: int, forms):
         flops = 2 * b * h * w * (c * mid + 9 * mid * mid + mid * o
                                  + (c * o if down else 0))
         results[form] = {
-            "max_abs_err": err, "ms": kernel_ms,
+            "max_abs_err": err, "ms": kernel_ms, "wrapper_ms": wrapper_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_max_abs_err": lib_err,
             **bound(nbytes, flops, PEAK_BF16_FLOP_PER_S),
         }
-        say(f"{name} {form}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} "
+        say(f"{name} {form}: kernel {kernel_ms:.4f} ms on prepared operands "
+            f"(wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} "
             f"ms, cuDNN block {library_ms:.4f} ms (max abs err {lib_err:.4g}), "
             f"bound {results[form]['bound_ms']:.4f} ms "
             f"({results[form]['bound_by']})")
@@ -743,7 +749,8 @@ def main() -> int:
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    reports = cuda_build.build_many([(fb.NAME, ()),
+    t_build = time.monotonic()
+    reports = cuda_build.build_many([(fb.NAME, fb.NVCC_EXTRA_FLAGS),
                                      (q8.NAME, q8.NVCC_EXTRA_FLAGS),
                                      (st.NAME, ()),
                                      (bs.NAME, bs.NVCC_EXTRA_FLAGS)])
@@ -754,7 +761,8 @@ def main() -> int:
             elif "registers" in line or "spill" in line or "smem" in line:
                 say(f"ptxas {name}:   {line.strip()}")
     say("K1, K2 (fused_bottleneck), K3 (fused_bottleneck_int8), K4 "
-        "(fused_stem_bottleneck) and K5 (bone_splat) built")
+        "(fused_stem_bottleneck) and K5 (bone_splat) built in "
+        f"{time.monotonic() - t_build:.1f} s")
 
     mods = (fb, q8, st, bs)
     k1 = bottleneck_phase(fb, K1_SHAPE, K1_MID, 0, ("identity", "projection"))
@@ -798,7 +806,7 @@ def main() -> int:
               "dir_tpu_torch/csrc/fused_bottleneck.cu",
               "dir_tpu/ops/pallas_bottleneck.py:119", k1["identity"],
               projection=k1["projection"]),
-        entry("K2", "fused_bottleneck_streamed",
+        entry("K2", "fused_bottleneck (streamed form)",
               "dir_tpu_torch/csrc/fused_bottleneck.cu",
               "dir_tpu/ops/pallas_bottleneck.py:130", k2["identity"]),
         entry("K3", "fused_bottleneck_int8",

@@ -1,12 +1,9 @@
-// What the port's bf16 bottleneck kernels share (fused_bottleneck.cu: K1 and
-// K2; fused_stem_bottleneck.cu: K4): the tiling constants, the bf16 packing
-// helpers, and fused_bottleneck_kernel, the whole-halo kernel that K1 and K4
-// are two forms of (they differ in how a tile's input halo is made).
+// The whole-halo WMMA tile kernel of K4 (fused_stem_bottleneck.cu): its tiling
+// constants, bf16 packing helpers and fused_stem_bottleneck_kernel.
 
 #pragma once
 
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
@@ -69,15 +66,13 @@ __device__ __forceinline__ void stage_rows(bf16* dst, int ldd, const bf16* src,
   }
 }
 
-// The fused block on one 8x16 output tile: K1 (STEM false: the halo is the
-// block input x, (B, H, W, C)) and K4 (STEM true: x is the raw stem-conv
-// output (B, 2H, 2W, C), and the halo is its BN affine g1, t1, ReLU and 3x3
-// stride-2 max pool; always with the projection). M (mid) is a template
-// parameter: each warp's count of accumulators follows from it at compile
-// time.
-template <int M, bool STEM>
+// The fused block on one 8x16 output tile, fed by the raw stem-conv output x
+// (B, 2H, 2W, C): the halo is its BN affine g1, t1, ReLU and 3x3 stride-2 max
+// pool, and the residual is the projection. M (mid) is a template parameter:
+// each warp's count of accumulators follows from it at compile time.
+template <int M>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_bottleneck_kernel(const bf16* __restrict__ x,
+fused_stem_bottleneck_kernel(const bf16* __restrict__ x,
                         const float* __restrict__ g1, const float* __restrict__ t1,
                         const bf16* __restrict__ w1, const float* __restrict__ b1,
                         const bf16* __restrict__ w2, const float* __restrict__ b2,
@@ -103,11 +98,11 @@ fused_bottleneck_kernel(const bf16* __restrict__ x,
   const int tx0 = blockIdx.x * TW;
   const int ty0 = blockIdx.y * TH;
   const size_t n = blockIdx.z;
-  const bf16* xn = x + n * (STEM ? 4 : 1) * H * W * C;
+  const bf16* xn = x + n * 4 * H * W * C;
 
-  // Phase 0: the tile's input halo (zero outside the map and in the padding
-  // rows) into shared memory: the halo of x, or for the stem form the pooled
-  // halo, each pixel made from its nine raw pixels (H, W are the pooled map's).
+  // Phase 0: the tile's pooled halo (zero outside the map and in the padding
+  // rows) into shared memory, each pixel made from its nine raw pixels (H, W
+  // are the pooled map's).
   const int cv = C / 8;
   for (int i = threadIdx.x; i < HALO_PAD * cv; i += THREADS) {
     const int r = i / cv;
@@ -115,41 +110,35 @@ fused_bottleneck_kernel(const bf16* __restrict__ x,
     const int gy = ty0 - 1 + r / HALO_W;
     const int gx = tx0 - 1 + r % HALO_W;
     const bool inside = r < HALO && gy >= 0 && gy < H && gx >= 0 && gx < W;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if constexpr (STEM) {
-      float best[8];
+    float best[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) best[j] = 0.0f;   // the pool's zero padding
-      if (inside) {
-        float g[8], t[8];
+    for (int j = 0; j < 8; ++j) best[j] = 0.0f;   // the pool's zero padding
+    if (inside) {
+      float g[8], t[8];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          g[j] = round_bf16(g1[v * 8 + j]);
-          t[j] = round_bf16(t1[v * 8 + j]);
-        }
-        for (int dy = -1; dy <= 1; ++dy) {
-          const int ry = 2 * gy + dy;
-          if (ry < 0 || ry >= 2 * H) continue;
-          for (int dx = -1; dx <= 1; ++dx) {
-            const int rx = 2 * gx + dx;
-            if (rx < 0 || rx >= 2 * W) continue;
-            float f[8];
-            unpack8(*reinterpret_cast<const uint4*>(
-                        xn + ((size_t)ry * 2 * W + rx) * C + v * 8), f);
+      for (int j = 0; j < 8; ++j) {
+        g[j] = round_bf16(g1[v * 8 + j]);
+        t[j] = round_bf16(t1[v * 8 + j]);
+      }
+      for (int dy = -1; dy <= 1; ++dy) {
+        const int ry = 2 * gy + dy;
+        if (ry < 0 || ry >= 2 * H) continue;
+        for (int dx = -1; dx <= 1; ++dx) {
+          const int rx = 2 * gx + dx;
+          if (rx < 0 || rx >= 2 * W) continue;
+          float f[8];
+          unpack8(*reinterpret_cast<const uint4*>(
+                      xn + ((size_t)ry * 2 * W + rx) * C + v * 8), f);
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              // product and sum each rounded to bf16; relu is the 0 in best
-              const float a = round_bf16(__fadd_rn(round_bf16(__fmul_rn(f[j], g[j])), t[j]));
-              best[j] = fmaxf(best[j], a);
-            }
+          for (int j = 0; j < 8; ++j) {
+            // product and sum each rounded to bf16; relu is the 0 in best
+            const float a = round_bf16(__fadd_rn(round_bf16(__fmul_rn(f[j], g[j])), t[j]));
+            best[j] = fmaxf(best[j], a);
           }
         }
       }
-      val = pack8(best);
-    } else {
-      if (inside)
-        val = *reinterpret_cast<const uint4*>(xn + ((size_t)gy * W + gx) * C + v * 8);
     }
+    const uint4 val = pack8(best);
     *reinterpret_cast<uint4*>(xs + r * ldx + v * 8) = val;
   }
   stage_rows(wbuf, ldy, w1, C, M);

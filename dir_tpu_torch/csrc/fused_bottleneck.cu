@@ -1,505 +1,865 @@
 // Fused stride-1 ResNet bottleneck at inference, bf16 in and out, for Hopper
-// (sm_90a).
+// (sm_90a): kernels K1 and K2, one template.
 //
-// Replaces dir_tpu/ops/pallas_bottleneck.py:fused_bottleneck_infer (the
-// whole-map Pallas `_kernel`, math in `_bottleneck_body`). Computes, with BN
-// folded into the weights beforehand:
+// Replaces dir_tpu/ops/pallas_bottleneck.py:_kernel (K1, reached by
+// fused_bottleneck_infer with bands=0) and _kernel_banded (K2, bands>0). With
+// BN folded into the weights beforehand both compute
 //   y1  = bf16(relu(x . w1 + b1))            zero in the 3x3 halo outside the image
 //   y2  = bf16(relu(conv3x3(y1, w2) + b2))
 //   y3  = bf16(y2 . w3 + b3)
 //   res = x, or bf16(x . wd + bd) for the projection form
 //   out = bf16(relu(y3 + res))
-// with bf16 operands and fp32 accumulation; biases are fp32.
+// with bf16 operands and fp32 accumulation; biases are fp32. The TPU kernels'
+// whole-map blocks and row bands serve its fast memory and are not carried
+// over; K1 and K2 are two forms of one template here.
 //
-// What bounds it on an H100: at the layer1 shape the main path gives it
-// (B, 64, 64, 256), mid 64, out 256, the block input and output are
-// B * 64*64 * (256 + 256) * 2 bytes (1.07 GB at B = 256, 0.32 ms at
-// 3.35 TB/s), against 2*B*4096*(256*64 + 9*64*64 + 64*256) = 146 GFLOP
-// (0.15 ms at 989 TFLOP/s): it is bound by device-memory bytes.
+// What bounds them on an H100: the block input and output. At the layer1
+// shape (B, 64, 64, 256), mid 64: B*4096*(256+256)*2 bytes (1.07 GB at
+// B = 256, 0.32 ms at 3.35 TB/s) against 146 GFLOP (0.15 ms at 989 TFLOP/s).
+// At the layer2 shape (B, 32, 32, 512), mid 128: 537 MB (0.160 ms) against
+// 146 GFLOP (0.148 ms): bytes, narrowly.
 //
-// What the design does about it: the intermediates y1 and y2 never leave
-// shared memory, so device memory sees the block input and output once (plus
-// the halo's re-read, mostly from L2). One thread block of 16 warps owns an
-// 8x16 tile of output pixels of one sample. It loads the 10x18-pixel halo of
-// x (all C channels) into shared memory, runs conv1 on the halo, conv2 as
-// nine shifted K=mid products over rows of the halo (a tile 16 pixels wide
-// makes every 3x3 tap a contiguous 16-row operand), then conv3 and the
-// residual. The products are WMMA bf16 fragments with fp32 accumulation on
-// the tensor cores. Each phase's folded weights are staged in shared memory
-// with 16-byte copies, and every warp keeps one weight fragment in registers
-// across all the row tiles it owns. The halo costs 1.4x the input pixels and
-// 1.5x conv1's products; wgmma, TMA, and overlapping one tile's loads with
-// another's math are left for later work. That kernel (K1) is
-// fused_bottleneck_kernel<M, false> of bottleneck_tile.cuh, which also holds
-// the stem form K4 (fused_stem_bottleneck.cu).
+// The design: y1 and y2 never leave the SM, and every product is a wgmma.
+//   Tiles. A tile is 8x16 output pixels of one sample; conv1 runs over its
+//     10x18 halo (three 64-row wgmma tiles, 192 rows, 1.5x the products of
+//     its 128 pixels). The grid is persistent: one block an SM, each walking
+//     the tiles (n, ty, tx) in a static stride.
+//   Roles. Two consumer warpgroups do the math; one thread of a producer
+//     warpgroup issues every copy (setmaxnreg gives the producer 56 registers
+//     a thread and the consumers 224). Copies land in a ring of as many stages
+//     as shared memory holds (2-6), each guarded by a full and an empty
+//     mbarrier, so the next tile's first x chunks arrive while this tile runs
+//     conv2, conv3 and its epilogue, and one chunk's conv1 products run while
+//     the next chunk is awaited. Every wait is bounded: a pipeline fault traps
+//     and the launch fails instead of hanging.
+//   x's halo comes by TMA: a 4-D tensor map over NHWC x, a box of 64 channels
+//     x 18 x 11 pixels (198 rows of 128 bytes, 128-byte swizzle), whose
+//     zero fill outside the tensor gives the image border and C beyond the
+//     last channel. The projection's x (the tile's own 128 pixels) is a
+//     second box, 64 x 16 x 8, read again per conv3 chunk.
+//   conv1: A is the x chunk, B the chunk's w1 rows, both through shared-memory
+//     descriptors; each consumer warpgroup takes half of mid's columns over
+//     all 192 rows, so both do the same work. y1 = relu(. + b1), masked, goes
+//     to shared memory (rows padded by 16 bytes: ldmatrix without conflicts).
+//   conv2: nine taps. A comes from registers, loaded by ldmatrix at per-lane
+//     rows of y1 (a tap's shifted window is no descriptor's layout); B is the
+//     tap's (mid, mid) tile. Each warp owns one output row of 16 pixels.
+//   conv3: A is conv2's own accumulators, biased, ReLU'd and rounded to bf16
+//     in registers: the accumulator layout of two 8-column tiles is the A
+//     register layout of one k16 step, so y2 never touches shared memory. B
+//     is w3, N3 = max(32, mid) output channels at a time. The wrapper orders
+//     every 32 columns of w3 and wd so that a thread's eight values are eight
+//     consecutive channels: the identity residual is read from L2 (a chunk
+//     ahead of its use) and the output written as 16-byte vectors, with no
+//     staging tile. (Staging each chunk in shared memory for a TMA store was
+//     measured slower: one buffer, two barriers a chunk.)
+//   Weights. The wrapper lays every weight out as the descriptors read it:
+//     (N, K) K-major, 64-wide K panels, 128-byte swizzled, K zero-padded.
+//     K1 (resident) loads w1, w2 and w3 once per block by bulk copy and keeps
+//     them for its life; K2 (streamed) sends them through the ring per tile:
+//     conv1 chunks carry their w1 panel, then the nine w2 taps, then the w3
+//     chunks. The projection's wd always streams.
+//   Shared memory, layer1 resident (C 256, mid 64, O 256): weights 136 KB,
+//     2 halo stages of 25 KB, y1 27 KB, barriers and alignment 2 KB: 215 KB.
+//     Layer2 streamed (mid 128): 4 stages of 41 KB (a halo box and a w1
+//     panel; a w2 tap or a w3 chunk is 32 KB), y1 51 KB, 2 KB: 217 KB. The
+//     layer2 widths' weights (544 KB) cannot be resident: K1 refuses them.
 //
-// A second kernel (K2, fused_bottleneck_streamed_kernel) computes the same
-// function where K1's working set does not fit: at the layer2 shape
-// (B, 32, 32, 512), mid 128, K1 would need 459 KB of the 227 KB a block may
-// use. It replaces the row-banded Pallas `_kernel_banded` that the same call
-// reaches with bands=N; its note stands above it.
+// Built with -DBOTTLENECK_PROFILE (dir_tpu_torch/profile_kernels.py), one
+// consumer thread and the producer sum clock64() per phase; the main path's
+// build never sets it.
 //
-// C interface (bound with ctypes): fused_bottleneck_bf16 (K1) and
-// fused_bottleneck_streamed_bf16 (K2) launch on the given stream, allocate
-// nothing, do not synchronise, and return cudaGetLastError() (or
-// cudaErrorInvalidValue for shapes they do not take).
+// C interface (bound with ctypes): fused_bottleneck_bf16 launches on the
+// given stream, allocates nothing, does not synchronise, and returns
+// cudaGetLastError() (or cudaErrorInvalidValue for shapes it does not take).
 
-#include "bottleneck_tile.cuh"
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
+
+#include "wgmma_bf16.cuh"
+
+typedef __nv_bfloat16 bf16;
 
 namespace {
 
-// K1 is fused_bottleneck_kernel<M, false> of bottleneck_tile.cuh.
-template <int M>
-int launch(const void* x, const void* w1, const void* b1, const void* w2,
-           const void* b2, const void* w3, const void* b3, const void* wd,
-           const void* bd, void* out, int B, int H, int W, int C, int O,
-           int has_down, int smem, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_bottleneck_kernel<M, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  fused_bottleneck_kernel<M, false><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, nullptr, nullptr, (const bf16*)w1, (const float*)b1, (const bf16*)w2,
-      (const float*)b2, (const bf16*)w3, (const float*)b3, (const bf16*)wd,
-      (const float*)bd, (bf16*)out, H, W, C, O, has_down, wbuf_elems(C, M, O));
-  return (int)cudaGetLastError();
-}
+constexpr int TH = 8;                          // output rows of a tile
+constexpr int TW = 16;                         // output columns of a tile
+constexpr int HALO_W = TW + 2;                 // 18
+constexpr int HALO = (TH + 2) * HALO_W;        // 180 halo pixels
+constexpr int HALO_ROWS = 192;                 // conv1's three 64-row wgmma tiles
+constexpr int BOX_H = TH + 3;                  // the TMA box: 18 x 11 = 198 >= 192 rows
+constexpr int KC = 64;                         // channels of a chunk: one 128-byte row
+constexpr int ROW = 128;                       // bytes of a row of a chunk or a weight panel
+constexpr int X_BYTES = HALO_W * BOX_H * ROW;  // 25,344 bytes a halo box delivers
+constexpr int X_SLOT = 25 * 1024;              // ... rounded up to the 1024-byte swizzle atom
+constexpr int XC_BYTES = TH * TW * ROW;        // 16,384: the tile's own pixels, one chunk
+constexpr int CONSUMERS = 2;                   // consumer warpgroups
+constexpr int THREADS = (CONSUMERS + 1) * 128; // plus one producer warpgroup
+constexpr int MAX_STAGES = 6;
+constexpr int BAR_BYTES = 1024;                // the mbarriers, ahead of the ring
+constexpr int MAX_SMEM = 232448;               // H100: 227 KB of dynamic shared memory per block
+constexpr int Y1_SKEW = 8;                     // y1 row padding (elements): ldmatrix rows in distinct banks
+constexpr long long WAIT_LIMIT = 1ll << 32;    // cycles (about 2 s) before a wait traps
 
-// ---------------------------------------------------------------------------
-// K2: the same block with every operand streamed through shared memory.
-//
-// Replaces dir_tpu/ops/pallas_bottleneck.py:_kernel_banded (reached by
-// fused_bottleneck_infer(bands=N)). The TPU kernel bands rows because one
-// sample's 3x3 window concat overflows its fast memory; here a block already
-// owns only an 8x16 tile, and what does not fit at the layer2 shape is K1's
-// habit of holding the tile's x halo at all C channels (203 KB at C = 512)
-// and a whole phase's weights. So the tiling stays K1's and the bands are not
-// carried over; instead
-//   conv1 streams its K dimension: the x halo and w1 arrive in chunks of 64
-//     channels, double-buffered with cp.async, and y1's accumulators stay in
-//     registers across the chunks (6 fragments a warp at mid 128);
-//   conv2 and conv3 stream their weights as (mid, mid) tiles, one 3x3 tap or
-//     one block of mid output channels at a time, through the same two
-//     buffers, so the next tile loads while the tensor cores work on this one;
-//   the identity residual is read from device memory in the epilogue (the
-//     halo load just read it, so it is mostly in L2); a projected residual
-//     streams the tile's own pixels of x through a third buffer.
-// The rounding points are K1's, and the plain version's. Shared memory depends
-// on mid only (222 KB at mid 128), so any C and O that are multiples of 16 are
-// taken.
-//
-// What bounds it on an H100: at (B, 32, 32, 512), mid 128, input and output
-// are B*1024*(512+512)*2 bytes (537 MB at B = 256, 0.160 ms at 3.35 TB/s)
-// against 2*B*1024*(512*128 + 9*128*128 + 128*512) = 146 GFLOP (0.148 ms at
-// 989 TFLOP/s): bytes, narrowly. The halo re-read (1.4x the input pixels) and
-// conv1 on the halo (1.5x its products) are the price of keeping y1 and y2
-// out of device memory, as in K1.
-
-constexpr int KC = 64;              // channels of x per conv1 chunk
-constexpr int LDXC = KC + SKEW;     // row stride of a staged x chunk
-
-// Elements of one streaming buffer: a conv1 chunk (x halo + w1 rows) or one
-// (mid, mid) weight tile, whichever is larger.
-__host__ __device__ constexpr int slot_elems(int M) {
-  return HALO_PAD * LDXC + KC * (M + SKEW) > M * (M + SKEW)
-             ? HALO_PAD * LDXC + KC * (M + SKEW)
-             : M * (M + SKEW);
-}
-
-// rows x cols bf16 (cols a multiple of 8) of a row-major matrix with row
-// stride lds into shared rows of stride ldd, as asynchronous 16-byte copies.
-__device__ __forceinline__ void stage_tile_async(bf16* dst, int ldd, const bf16* src,
-                                                 int lds, int rows, int cols) {
-  const int cv = cols / 8;
-  for (int i = threadIdx.x; i < rows * cv; i += THREADS) {
-    const int r = i / cv;
-    const int v = i - r * cv;
-    __pipeline_memcpy_async(dst + r * ldd + v * 8, src + (size_t)r * lds + v * 8, 16);
+#ifdef BOTTLENECK_PROFILE
+// Per-phase clock64() sums of one consumer thread (slots 0-15) and of the
+// producer thread (16-31) over all blocks; read by fused_bottleneck_prof_read.
+__device__ unsigned long long g_prof[32];
+#define PROF_DECL                        \
+  unsigned long long prof_t = clock64(); \
+  unsigned long long prof_acc[16] = {};
+#define PROF(slot)                             \
+  {                                            \
+    const unsigned long long t_ = clock64();   \
+    prof_acc[slot] += t_ - prof_t;             \
+    prof_t = t_;                               \
   }
+#define PROF_COUNT(slot) prof_acc[slot] += 1;
+#define PROF_FLUSH(base) \
+  for (int i_ = 0; i_ < 16; ++i_) atomicAdd(&g_prof[(base) + i_], prof_acc[i_]);
+#else
+#define PROF_DECL
+#define PROF(slot)
+#define PROF_COUNT(slot)
+#define PROF_FLUSH(base)
+#endif
+
+// Everything the kernel reads beside the two tensor maps.
+struct Params {
+  const bf16* x;                  // (B, H, W, C), for the identity residual
+  const unsigned char* image;     // the weight images (ops/fused_bottleneck.py:kernel_operands)
+  const float* b1;
+  const float* b2;
+  const float* b3;
+  const float* bd;
+  bf16* out;                      // (B, H, W, O)
+  int H, W, C, O;
+  int ntx, nty, tiles;
+  int nk;                         // conv1's chunks of 64 input channels
+  int nj;                         // conv3's chunks of N3 output channels
+  int has_down;
+  int stages;
+  int stage_bytes;
+  int w2_off, w3_off, wd_off;     // byte offsets of the images (w1's is 0)
+};
+
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// Widths and image sizes that follow from mid (M).
+template <int M>
+struct Shape {
+  static constexpr int N1 = M / 2;              // conv1 columns of one consumer warpgroup
+  static constexpr int KP = (M + KC - 1) / KC;  // 64-wide K panels of conv2 and conv3
+  static constexpr int KS = M / 16;             // their k16 steps
+  static constexpr int N3 = M < 32 ? 32 : M;    // output channels of a conv3 chunk
+  static constexpr int LDY = M + Y1_SKEW;
+  static constexpr int W1P = M * ROW;           // bytes of one w1 panel (64 input channels)
+  static constexpr int W2T = KP * M * ROW;      // bytes of one 3x3 tap of w2
+  static constexpr int W3C = KP * N3 * ROW;     // bytes of one conv3 chunk of w3
+  static constexpr int WDP = N3 * ROW;          // bytes of one wd panel
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Channels [k0, k0 + kw) of the tile's x halo and the matching rows of w1 into
-// one buffer, asynchronously; halo pixels outside the image and the padding
-// rows are zero. One commit group.
-template <int M>
-__device__ __forceinline__ void start_conv1_chunk(bf16* slot, const bf16* xn,
-                                                  const bf16* w1, int H, int W, int C,
-                                                  int ty0, int tx0, int k0, int kw) {
-  const int cv = kw / 8;
-  for (int i = threadIdx.x; i < HALO_PAD * cv; i += THREADS) {
-    const int r = i / cv;
-    const int v = i - r * cv;
-    const int gy = ty0 - 1 + r / HALO_W;
-    const int gx = tx0 - 1 + r % HALO_W;
-    bf16* d = slot + r * LDXC + v * 8;
-    if (r < HALO && gy >= 0 && gy < H && gx >= 0 && gx < W)
-      __pipeline_memcpy_async(d, xn + ((size_t)gy * W + gx) * C + k0 + v * 8, 16);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
-  stage_tile_async(slot + HALO_PAD * LDXC, M + SKEW, w1 + (size_t)k0 * M, M, kw, M);
-  __pipeline_commit();
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
 }
 
-// Weight tile t of the conv2/conv3 stream into one buffer: t < 9 is the 3x3
-// tap t of w2, t >= 9 the output channels [(t-9)*M, (t-8)*M) of w3. One commit
-// group.
-template <int M>
-__device__ __forceinline__ void start_weight_tile(bf16* slot, const bf16* w2,
-                                                  const bf16* w3, int O, int t) {
-  if (t < 9) {
-    stage_tile_async(slot, M + SKEW, w2 + (size_t)t * M * M, M, M, M);
-  } else {
-    const int o0 = (t - 9) * M;
-    stage_tile_async(slot, M + SKEW, w3 + o0, O, M, min(M, O - o0));
-  }
-  __pipeline_commit();
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
 }
 
-template <int M>
-__global__ void __launch_bounds__(THREADS, 1)
-fused_bottleneck_streamed_kernel(const bf16* __restrict__ x,
-                                 const bf16* __restrict__ w1, const float* __restrict__ b1,
-                                 const bf16* __restrict__ w2, const float* __restrict__ b2,
-                                 const bf16* __restrict__ w3, const float* __restrict__ b3,
-                                 const bf16* __restrict__ wd, const float* __restrict__ bd,
-                                 bf16* __restrict__ out, int H, int W, int C, int O,
-                                 int has_down) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int ldy = M + SKEW;
-  constexpr int SLOT = slot_elems(M);
-  bf16* y1s = reinterpret_cast<bf16*>(smem_raw);          // (HALO_PAD, ldy) y1 halo
-  bf16* y2s = y1s + HALO_PAD * ldy;                       // (TH * TW, ldy) y2
-  bf16* slots = y2s + TH * TW * ldy;                      // two streaming buffers
-  bf16* xc = slots + 2 * SLOT;                            // (TH * TW, LDXC) x chunk, projection
-  float* stage = reinterpret_cast<float*>(xc + TH * TW * LDXC);
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* wstage = stage + warp * 256;                     // one 16x16 fp32 tile per warp
-  const int er = lane >> 1;
-  const int ec = (lane & 1) * 8;
-  const int tx0 = blockIdx.x * TW;
-  const int ty0 = blockIdx.y * TH;
-  const size_t n = blockIdx.z;
-  const bf16* xn = x + n * H * W * C;
+__device__ __forceinline__ bool mbar_test(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done;
+}
 
-  // Warp -> (column tile, row group), for all three convs: a weight tile is
-  // mid columns wide in each of them.
-  constexpr int mt = M / 16;
-  constexpr int rgroups = WARPS / mt;
-  constexpr int ACC1 = (HALO_TILES + rgroups - 1) / rgroups;
-  constexpr int ACC2 = (TH + rgroups - 1) / rgroups;
-  const int ct = warp % mt;
-  const int g = warp / mt;
+// Wait for the completion of the barrier's phase of this parity. A wait that
+// outlasts WAIT_LIMIT cycles is a pipeline fault: it traps, so the launch
+// fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  if (mbar_test(addr, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_test(addr, parity))
+    if (clock64() - t0 > WAIT_LIMIT) __trap();
+}
 
-  // Phase 1: y1 = relu(x . w1 + b1) over the halo, K streamed in chunks.
-  {
-    FragC acc[ACC1];
+// A (64 channels x 18 x 11 or 16 x 8 pixels) box of x through the tensor map,
+// 128-byte swizzled, zero where it leaves the tensor.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint64_t* bar, int c,
+                                        int x, int y, int n) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c), "r"(x), "r"(y), "r"(n)
+      : "memory");
+}
+
+// Contiguous bytes (a multiple of 16) from device memory.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma descriptor of a K-major operand in 128-byte-swizzled rows (8-row
+// atoms of 1024 bytes, the layout TMA's 128-byte swizzle writes); one k16
+// step further along K is + 2 (32 bytes).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup's products are in
+// flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void wg_wait_all() { wg_wait<0>(); }
+
+// Keeps the compiler from moving reads of accumulators across the wait.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
-    for (int i = 0; i < ACC1; ++i) wmma::fill_fragment(acc[i], 0.0f);
-    const int nk = (C + KC - 1) / KC;
-    start_conv1_chunk<M>(slots, xn, w1, H, W, C, ty0, tx0, 0, min(KC, C));
-    for (int kc = 0; kc < nk; ++kc) {
-      const bf16* xs = slots + (kc & 1) * SLOT;
-      if (kc + 1 < nk) {
-        const int k0 = (kc + 1) * KC;
-        start_conv1_chunk<M>(slots + ((kc + 1) & 1) * SLOT, xn, w1, H, W, C, ty0, tx0,
-                             k0, min(KC, C - k0));
-        __pipeline_wait_prior(1);
-      } else {
-        __pipeline_wait_prior(0);
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void zero(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = 0.0f;
+}
+
+// The consumer warpgroups' own barrier (id 1; 0 is __syncthreads).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ void unpack8(uint4 u, float* v) {
+  const __nv_bfloat162* t = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(t[j]);
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+
+// The producer: one thread issues every copy, in the order the consumers use
+// them, through the ring of stages. Per tile: conv1's nk chunks (the x halo
+// box, plus the chunk's w1 panel when streamed); when streamed, the nine w2
+// taps; then per conv3 chunk j its w3 block when streamed, and with the
+// projection nk pairs (the tile's own pixels, wd's panel).
+template <int M, bool RESIDENT>
+__device__ __forceinline__ void produce(const CUtensorMap* tm_halo, const CUtensorMap* tm_center,
+                                        const Params& p, unsigned char* ring, uint64_t* full,
+                                        uint64_t* empty, uint64_t* wbar, unsigned char* wres) {
+  using S = Shape<M>;
+  PROF_DECL
+  if (RESIDENT) {
+    // w1, w2 and w3 stay for the block's life
+    mbar_expect_tx(wbar, (uint32_t)p.wd_off);
+    for (int off = 0; off < p.wd_off; off += 16384)
+      bulk_copy(wres + off, p.image + off, (uint32_t)min(16384, p.wd_off - off), wbar);
+  }
+  uint32_t it = 0;
+  unsigned char* st = nullptr;
+  uint64_t* bar = nullptr;
+  auto acquire = [&](uint32_t bytes) {
+    const int s = (int)(it % (uint32_t)p.stages);
+    mbar_wait(&empty[s], ((it / (uint32_t)p.stages) & 1) ^ 1);
+    PROF(0)
+    mbar_expect_tx(&full[s], bytes);
+    st = ring + s * p.stage_bytes;
+    bar = &full[s];
+    ++it;
+  };
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    const int tx = tile % p.ntx;
+    const int ty = (tile / p.ntx) % p.nty;
+    const int n = tile / (p.ntx * p.nty);
+    for (int kc = 0; kc < p.nk; ++kc) {
+      acquire(X_BYTES + (RESIDENT ? 0 : S::W1P));
+      tma_box(st, tm_halo, bar, kc * KC, tx * TW - 1, ty * TH - 1, n);
+      if (!RESIDENT) bulk_copy(st + X_SLOT, p.image + kc * S::W1P, S::W1P, bar);
+      PROF(1)
+    }
+    if (!RESIDENT) {
+      for (int t = 0; t < 9; ++t) {
+        acquire(S::W2T);
+        bulk_copy(st, p.image + p.w2_off + t * S::W2T, S::W2T, bar);
+        PROF(1)
       }
-      __syncthreads();
-      const bf16* ws = xs + HALO_PAD * LDXC;
-      const int kw = min(KC, C - kc * KC);
-      for (int k = 0; k < kw; k += 16) {
-        FragB b;
-        wmma::load_matrix_sync(b, ws + k * ldy + ct * 16, ldy);
-#pragma unroll
-        for (int i = 0; i < ACC1; ++i) {
-          const int rt = g + i * rgroups;
-          if (rt < HALO_TILES) {
-            FragA a;
-            wmma::load_matrix_sync(a, xs + rt * 16 * LDXC + k, LDXC);
-            wmma::mma_sync(acc[i], a, b, acc[i]);
-          }
+    }
+    for (int j = 0; j < p.nj; ++j) {
+      if (!RESIDENT) {
+        acquire(S::W3C);
+        bulk_copy(st, p.image + p.w3_off + j * S::W3C, S::W3C, bar);
+        PROF(1)
+      }
+      if (p.has_down) {
+        for (int kc = 0; kc < p.nk; ++kc) {
+          acquire(XC_BYTES + S::WDP);
+          tma_box(st, tm_center, bar, kc * KC, tx * TW, ty * TH, n);
+          bulk_copy(st + XC_BYTES, p.image + p.wd_off + (j * p.nk + kc) * S::WDP, S::WDP, bar);
+          PROF(1)
         }
       }
-      __syncthreads();   // this buffer is refilled by the next iteration's copies
     }
-    // both buffers are free: the first 3x3 tap loads behind the epilogue
-    start_weight_tile<M>(slots, w2, w3, O, 0);
+    PROF_COUNT(15)
+  }
+  PROF_FLUSH(16)
+}
+
+// The two consumer warpgroups. Warpgroup wg computes conv1's mid columns
+// [wg * M/2, (wg + 1) * M/2) over all 192 halo rows (the halo's three 64-row
+// tiles, split by columns so that both do the same work), then conv2 and
+// conv3 for its own 64 output pixels: output rows 4 wg .. 4 wg + 3, one per
+// warp.
+template <int M, bool RESIDENT>
+__device__ __forceinline__ void consume(const Params& p, unsigned char* ring, uint64_t* full,
+                                        uint64_t* empty, uint64_t* wbar,
+                                        const unsigned char* wres, bf16* y1) {
+  using S = Shape<M>;
+  constexpr int N1 = S::N1, N3 = S::N3, KS = S::KS, LDY = S::LDY;
+  PROF_DECL
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int tig = lane % 4;
+  const int oy = 4 * wg + warp;              // this warp's output row of the tile
+  uint32_t it = 0;
+  auto wait_stage = [&]() -> int {
+    const int s = (int)(it % (uint32_t)p.stages);
+    mbar_wait(&full[s], (it / (uint32_t)p.stages) & 1);
+    ++it;
+    return s;
+  };
+  // each consumer warp releases a stage once its products have read it
+  auto release = [&](int s) {
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+  if (RESIDENT) mbar_wait(wbar, 0);
+  PROF(0)
+
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    const int tx0 = (tile % p.ntx) * TW;
+    const int ty0 = ((tile / p.ntx) % p.nty) * TH;
+    const int n = tile / (p.ntx * p.nty);
+
+    // conv1: acc1[i] is halo rows 64 i .. 64 i + 63, N1 mid columns
+    float acc1[3][N1 / 2];
 #pragma unroll
-    for (int i = 0; i < ACC1; ++i) {
-      const int rt = g + i * rgroups;
-      if (rt < HALO_TILES) {
-        wmma::store_matrix_sync(wstage, acc[i], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int r = rt * 16 + er;
-        const int col = ct * 16 + ec;
+    for (int i = 0; i < 3; ++i) zero(acc1[i]);
+    // one chunk's products stay in flight while the next chunk is awaited:
+    // a stage is released once the products after it were issued
+    int prev = -1;
+    for (int kc = 0; kc < p.nk; ++kc) {
+      const int s = wait_stage();
+      PROF(1)
+      const unsigned char* st = ring + s * p.stage_bytes;
+      const unsigned char* w1p = RESIDENT ? wres + kc * S::W1P : st + X_SLOT;
+      const uint64_t bdesc = desc_sw128(w1p + wg * N1 * ROW);
+      const uint64_t adesc = desc_sw128(st);
+      wg_fence();
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<N1>::ss(acc1[i], adesc + i * (64 * ROW / 16) + kk * 2, bdesc + kk * 2);
+      wg_commit();
+      wg_wait<1>();
+      if (prev >= 0) release(prev);
+      prev = s;
+      PROF(2)
+    }
+    wg_wait_all();
+#pragma unroll
+    for (int i = 0; i < 3; ++i) fence_regs(acc1[i]);
+    release(prev);
+
+    // y1 = relu(conv1 + b1) into shared memory, 0 outside the image (conv2's
+    // zero padding) and in the padding rows. The barrier before: the other
+    // warpgroup has finished reading the last tile's y1.
+    consumers_sync();
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = 64 * i + 16 * warp + g + 8 * hf;
         const int gy = ty0 - 1 + r / HALO_W;
         const int gx = tx0 - 1 + r % HALO_W;
-        // a halo pixel outside the image is conv2's zero padding
-        const bool inside = r < HALO && gy >= 0 && gy < H && gx >= 0 && gx < W;
-        float v[8];
+        const bool inside = r < HALO && gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          v[j] = inside ? fmaxf(wstage[er * 16 + ec + j] + b1[col + j], 0.0f) : 0.0f;
-        *reinterpret_cast<uint4*>(y1s + r * ldy + col) = pack8(v);
-        __syncwarp();
+        for (int jn = 0; jn < N1 / 8; ++jn) {
+          const int ch = wg * N1 + 8 * jn + 2 * tig;
+          const float2 b = __ldg(reinterpret_cast<const float2*>(p.b1 + ch));
+          const float v0 = inside ? fmaxf(acc1[i][4 * jn + 2 * hf] + b.x, 0.0f) : 0.0f;
+          const float v1 = inside ? fmaxf(acc1[i][4 * jn + 2 * hf + 1] + b.y, 0.0f) : 0.0f;
+          *reinterpret_cast<uint32_t*>(y1 + r * LDY + ch) = pack2(v0, v1);
+        }
       }
     }
-  }
+    consumers_sync();
+    PROF(3)
 
-  // Phase 2: y2 = relu(conv3x3(y1) + b2), one tap's weights at a time. The
-  // tile after the ninth tap is the first of w3, so it is always there to
-  // prefetch. The first iteration's barrier also publishes y1s.
-  const int n3 = (O + M - 1) / M;
-  {
-    FragC acc[ACC2];
-#pragma unroll
-    for (int i = 0; i < ACC2; ++i) wmma::fill_fragment(acc[i], 0.0f);
+    // conv2: nine taps; tap (dy, dx) of output row oy reads the 16 halo rows
+    // from (oy + dy) * 18 + dx, as A registers loaded by ldmatrix
+    float acc2[M / 2];
+    zero(acc2);
+    const int arow = (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int akof = (lane >> 4) * 8;
     for (int t = 0; t < 9; ++t) {
-      const bf16* ws = slots + (t & 1) * SLOT;
-      start_weight_tile<M>(slots + ((t + 1) & 1) * SLOT, w2, w3, O, t + 1);
-      __pipeline_wait_prior(1);
-      __syncthreads();
       const int dy = t / 3;
       const int dx = t - dy * 3;
-      for (int k = 0; k < M; k += 16) {
-        FragB b;
-        wmma::load_matrix_sync(b, ws + k * ldy + ct * 16, ldy);
+      int s = 0;
+      const unsigned char* w2t;
+      if (RESIDENT) {
+        w2t = wres + p.w2_off + t * S::W2T;
+      } else {
+        s = wait_stage();
+        w2t = ring + s * p.stage_bytes;
+      }
+      PROF(4)
+      const bf16* a0 = y1 + ((oy + dy) * HALO_W + dx + arow) * LDY + akof;
+      uint32_t a[KS][4];
 #pragma unroll
-        for (int i = 0; i < ACC2; ++i) {
-          const int oy = g + i * rgroups;
-          if (oy < TH) {
-            FragA a;
-            wmma::load_matrix_sync(a, y1s + ((oy + dy) * HALO_W + dx) * ldy + k, ldy);
-            wmma::mma_sync(acc[i], a, b, acc[i]);
+      for (int kk = 0; kk < KS; ++kk) ldmatrix_x4(a[kk], a0 + kk * 16);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        Wgmma<M>::rs(acc2, a[kk], desc_sw128(w2t + (kk / 4) * M * ROW) + (kk % 4) * 2);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(acc2);
+      if (!RESIDENT) release(s);
+      PROF(5)
+    }
+
+    // y2 = bf16(relu(conv2 + b2)) stays in registers: the accumulator layout
+    // of two neighbouring 8-column tiles is the A register layout of one k16
+    // step of conv3
+    uint32_t y2[KS][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int jn = 2 * kk + (h >> 1);
+        const int idx = 4 * jn + 2 * (h & 1);
+        const float2 b = __ldg(reinterpret_cast<const float2*>(p.b2 + 8 * jn + 2 * tig));
+        y2[kk][h] = pack2(fmaxf(acc2[idx] + b.x, 0.0f), fmaxf(acc2[idx + 1] + b.y, 0.0f));
+      }
+    }
+    PROF(6)
+
+    // conv3 and the residual, N3 output channels at a time. The wrapper
+    // ordered every 32 columns of w3 and wd so that a thread's eight values
+    // of four 8-column tiles are eight consecutive channels. The two
+    // residual forms are two code paths, so that neither keeps the other's
+    // registers.
+    bf16* outn = p.out + (size_t)n * p.H * p.W * p.O;
+    const bf16* xn = p.x + (size_t)n * p.H * p.W * p.C;
+    const int gy = ty0 + oy;
+    auto conv3 = [&](auto down) {
+      constexpr bool DOWN = decltype(down)::value;
+      // the identity residual is loaded from L2 a chunk ahead, so that the
+      // loads' latency hides behind the products and the epilogue
+      auto load_residual = [&](int j, uint4(&r)[N3 / 32][2]) {
+#pragma unroll
+        for (int q = 0; q < N3 / 32; ++q) {
+          const int ch = j * N3 + 32 * q + 8 * tig;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int gx = tx0 + g + 8 * hf;
+            r[q][hf] = make_uint4(0u, 0u, 0u, 0u);
+            if (j < p.nj && gy < p.H && gx < p.W && ch < p.O)
+              r[q][hf] = __ldg(reinterpret_cast<const uint4*>(
+                  xn + ((size_t)gy * p.W + gx) * p.C + ch));
           }
         }
-      }
-      __syncthreads();
-    }
+      };
+      uint4 resv[N3 / 32][2], resn[N3 / 32][2];
+      if (!DOWN) load_residual(0, resv);
+      for (int j = 0; j < p.nj; ++j) {
+        float acc3[N3 / 2];
+        zero(acc3);
+        int s = 0;
+        const unsigned char* w3c;
+        if (RESIDENT) {
+          w3c = wres + p.w3_off + j * S::W3C;
+        } else {
+          s = wait_stage();
+          w3c = ring + s * p.stage_bytes;
+        }
+        PROF(7)
+        wg_fence();
 #pragma unroll
-    for (int i = 0; i < ACC2; ++i) {
-      const int oy = g + i * rgroups;
-      if (oy < TH) {
-        wmma::store_matrix_sync(wstage, acc[i], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int col = ct * 16 + ec;
-        float v[8];
+        for (int kk = 0; kk < KS; ++kk)
+          Wgmma<N3>::rs(acc3, y2[kk], desc_sw128(w3c + (kk / 4) * N3 * ROW) + (kk % 4) * 2);
+        wg_commit();
+        if (!DOWN) load_residual(j + 1, resn);
+        wg_wait_all();
+        fence_regs(acc3);
+        if (!RESIDENT) release(s);
+        PROF(8)
+        float accd[DOWN ? N3 / 2 : 1];
+        if constexpr (DOWN) {
+          zero(accd);
+          for (int kc = 0; kc < p.nk; ++kc) {
+            const int sd = wait_stage();
+            PROF(7)
+            const unsigned char* st = ring + sd * p.stage_bytes;
+            const uint64_t adesc = desc_sw128(st + wg * 64 * ROW);
+            const uint64_t bdesc = desc_sw128(st + XC_BYTES);
+            wg_fence();
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          v[j] = fmaxf(wstage[er * 16 + ec + j] + b2[col + j], 0.0f);
-        *reinterpret_cast<uint4*>(y2s + (oy * 16 + er) * ldy + col) = pack8(v);
-        __syncwarp();
-      }
-    }
-  }
-
-  // Phase 3: per block of mid output channels, y3 = y2 . w3 + b3 and the
-  // residual, each rounded to bf16, then their bf16 sum through relu to
-  // device memory, 16 bytes per lane.
-  bf16* outn = out + n * H * W * O;
-  for (int j3 = 0; j3 < n3; ++j3) {
-    const int t = 9 + j3;
-    const bf16* ws = slots + (t & 1) * SLOT;
-    if (j3 + 1 < n3) {
-      start_weight_tile<M>(slots + ((t + 1) & 1) * SLOT, w2, w3, O, t + 1);
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();   // for j3 = 0 this also publishes y2s
-    const int o0 = j3 * M;
-    const bool active = ct * 16 < min(M, O - o0);   // the last block may be narrower
-    const int col = o0 + ct * 16 + ec;
-
-    float y3[ACC2][8];
-    if (active) {
-      FragC acc[ACC2];
-#pragma unroll
-      for (int i = 0; i < ACC2; ++i) wmma::fill_fragment(acc[i], 0.0f);
-      for (int k = 0; k < M; k += 16) {
-        FragB b;
-        wmma::load_matrix_sync(b, ws + k * ldy + ct * 16, ldy);
-#pragma unroll
-        for (int i = 0; i < ACC2; ++i) {
-          const int oy = g + i * rgroups;
-          if (oy < TH) {
-            FragA a;
-            wmma::load_matrix_sync(a, y2s + oy * 16 * ldy + k, ldy);
-            wmma::mma_sync(acc[i], a, b, acc[i]);
+            for (int kk = 0; kk < 4; ++kk) Wgmma<N3>::ss(accd, adesc + kk * 2, bdesc + kk * 2);
+            wg_commit();
+            wg_wait_all();
+            fence_regs(accd);
+            release(sd);
+            PROF(8)
           }
         }
-      }
-#pragma unroll
-      for (int i = 0; i < ACC2; ++i) {
-        if (g + i * rgroups < TH) {
-          wmma::store_matrix_sync(wstage, acc[i], 16, wmma::mem_row_major);
-          __syncwarp();
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            y3[i][j] = round_bf16(wstage[er * 16 + ec + j] + b3[col + j]);
-          __syncwarp();
-        }
-      }
-    }
 
-    // the projected residual: x . wd over the tile's own pixels, K streamed
-    // through xc; wd's fragments come from device memory
-    FragC accd[ACC2];
-    if (has_down) {
 #pragma unroll
-      for (int i = 0; i < ACC2; ++i) wmma::fill_fragment(accd[i], 0.0f);
-      for (int k0 = 0; k0 < C; k0 += KC) {
-        const int kw = min(KC, C - k0);
-        const int cv = kw / 8;
-        __syncthreads();   // the previous chunk's readers are done
-        for (int i = threadIdx.x; i < TH * TW * cv; i += THREADS) {
-          const int r = i / cv;
-          const int v = i - r * cv;
-          const int gy = ty0 + r / TW;
-          const int gx = tx0 + r % TW;
-          uint4 val = make_uint4(0u, 0u, 0u, 0u);
-          if (gy < H && gx < W)
-            val = *reinterpret_cast<const uint4*>(xn + ((size_t)gy * W + gx) * C + k0 + v * 8);
-          *reinterpret_cast<uint4*>(xc + r * LDXC + v * 8) = val;
-        }
-        __syncthreads();
-        if (active) {
-          for (int k = 0; k < kw; k += 16) {
-            FragB b;
-            wmma::load_matrix_sync(b, wd + (size_t)(k0 + k) * O + o0 + ct * 16, O);
+        for (int q = 0; q < N3 / 32; ++q) {
+          const int ch = j * N3 + 32 * q + 8 * tig;
+          float b3[8], bd[8];
+          *reinterpret_cast<float4*>(b3) = __ldg(reinterpret_cast<const float4*>(p.b3 + ch));
+          *reinterpret_cast<float4*>(b3 + 4) = __ldg(reinterpret_cast<const float4*>(p.b3 + ch + 4));
+          if (DOWN) {
+            *reinterpret_cast<float4*>(bd) = __ldg(reinterpret_cast<const float4*>(p.bd + ch));
+            *reinterpret_cast<float4*>(bd + 4) =
+                __ldg(reinterpret_cast<const float4*>(p.bd + ch + 4));
+          }
 #pragma unroll
-            for (int i = 0; i < ACC2; ++i) {
-              const int oy = g + i * rgroups;
-              if (oy < TH) {
-                FragA a;
-                wmma::load_matrix_sync(a, xc + oy * 16 * LDXC + k, LDXC);
-                wmma::mma_sync(accd[i], a, b, accd[i]);
-              }
+          for (int hf = 0; hf < 2; ++hf) {
+            const int gx = tx0 + g + 8 * hf;
+            if (gy < p.H && gx < p.W && ch < p.O) {
+              float y3[8], res[8];
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int a = 4 * (4 * q + jj) + 2 * hf + e;
+                  y3[2 * jj + e] = round_bf16(acc3[a] + b3[2 * jj + e]);
+                  if constexpr (DOWN) res[2 * jj + e] = round_bf16(accd[a] + bd[2 * jj + e]);
+                }
+              if (!DOWN) unpack8(resv[q][hf], res);
+              // the add runs in bf16: the sum is rounded (by the pack), and
+              // relu commutes with the rounding
+              uint4 o;
+              uint32_t* ow = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                ow[k] = pack2(fmaxf(y3[2 * k] + res[2 * k], 0.0f),
+                              fmaxf(y3[2 * k + 1] + res[2 * k + 1], 0.0f));
+              *reinterpret_cast<uint4*>(outn + ((size_t)gy * p.W + gx) * p.O + ch) = o;
             }
           }
         }
-      }
-    }
-
-    if (active) {
+        if (!DOWN) {
 #pragma unroll
-      for (int i = 0; i < ACC2; ++i) {
-        const int oy = g + i * rgroups;
-        if (oy < TH) {
-          const int gy = ty0 + oy;
-          const int gx = tx0 + er;
-          const bool inside = gy < H && gx < W;
-          float res[8];
-          if (has_down) {
-            wmma::store_matrix_sync(wstage, accd[i], 16, wmma::mem_row_major);
-            __syncwarp();
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-              res[j] = round_bf16(wstage[er * 16 + ec + j] + bd[col + j]);
-            __syncwarp();
-          } else if (inside) {
-            unpack8(*reinterpret_cast<const uint4*>(xn + ((size_t)gy * W + gx) * C + col), res);
-          }
-          if (inside) {
-            float v[8];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) v[j] = fmaxf(y3[i][j] + res[j], 0.0f);
-            *reinterpret_cast<uint4*>(outn + ((size_t)gy * W + gx) * O + col) = pack8(v);
+          for (int q = 0; q < N3 / 32; ++q) {
+            resv[q][0] = resn[q][0];
+            resv[q][1] = resn[q][1];
           }
         }
+        PROF(9)
       }
-    }
-    __syncthreads();   // this w3 buffer is refilled by the next iteration's copies
+    };
+    if (p.has_down)
+      conv3(std::true_type{});
+    else
+      conv3(std::false_type{});
+    PROF_COUNT(15)
+  }
+  if (threadIdx.x == 0) {
+    PROF_FLUSH(0)
   }
 }
 
+template <int M, bool RESIDENT>
+__global__ void __launch_bounds__(THREADS, 1)
+    fused_bottleneck_kernel(const __grid_constant__ CUtensorMap tm_halo,
+                            const __grid_constant__ CUtensorMap tm_center,
+                            const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  // the ring's stages start on 1024-byte boundaries (the swizzle atom)
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + MAX_STAGES;
+  uint64_t* wbar = empty + MAX_STAGES;
+  unsigned char* ring = smem + BAR_BYTES;
+  unsigned char* wres = ring + p.stages * p.stage_bytes;
+  bf16* y1 = reinterpret_cast<bf16*>(wres + (RESIDENT ? p.wd_off : 0));
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 4);
+    }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // registers move from the producer warpgroup to the consumers: what .inc
+  // asks for must be what .dec gives back, (168 - 56) * 128 = (224 - 168) *
+  // 256, or .inc waits for ever
+  if (threadIdx.x >= CONSUMERS * 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    if (threadIdx.x == CONSUMERS * 128)
+      produce<M, RESIDENT>(&tm_halo, &tm_center, p, ring, full, empty, wbar, wres);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    consume<M, RESIDENT>(p, ring, full, empty, wbar, wres, y1);
+  }
+}
+
+// Bytes of the weight images, in the order w1, w2, w3, wd.
+struct Layout {
+  int w2_off, w3_off, wd_off, end;
+  int nk, nj, stage_bytes;
+};
+
 template <int M>
-int launch_streamed(const void* x, const void* w1, const void* b1, const void* w2,
-                    const void* b2, const void* w3, const void* b3, const void* wd,
-                    const void* bd, void* out, int B, int H, int W, int C, int O,
-                    int has_down, int smem, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_bottleneck_streamed_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+Layout layout(int C, int O, int has_down, bool resident) {
+  using S = Shape<M>;
+  Layout l;
+  l.nk = (C + KC - 1) / KC;
+  l.nj = round_up(O, S::N3) / S::N3;
+  l.w2_off = l.nk * S::W1P;
+  l.w3_off = l.w2_off + 9 * S::W2T;
+  l.wd_off = l.w3_off + l.nj * S::W3C;
+  l.end = l.wd_off + (has_down ? l.nj * l.nk * S::WDP : 0);
+  int stage = X_SLOT;
+  if (has_down) stage = std::max(stage, XC_BYTES + S::WDP);
+  if (!resident) stage = std::max({stage, X_SLOT + S::W1P, S::W2T, S::W3C});
+  l.stage_bytes = round_up(stage, 1024);
+  return l;
+}
+
+// Dynamic shared memory of a block with `stages` stages.
+template <int M>
+int smem_bytes(const Layout& l, bool resident, int stages) {
+  return 1024 + BAR_BYTES + stages * l.stage_bytes + (resident ? l.wd_off : 0) +
+         HALO_ROWS * Shape<M>::LDY * 2;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, from the libcuda the runtime loaded.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!h) h = dlopen("libcuda.so.1", RTLD_NOW);
+    if (h) fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// A map over NHWC x with a (64 channels, bw, bh, 1) box, 128-byte swizzle and
+// zero fill outside the tensor. Host work only.
+bool encode_nhwc(CUtensorMap* map, const void* x, int B, int H, int W, int C, int bw,
+                 int bh) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)KC, (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+template <int M, bool RESIDENT>
+int launch(const void* x, const void* image, const void* b1, const void* b2, const void* b3,
+           const void* bd, void* out, int B, int H, int W, int C, int O, int has_down,
+           void* stream) {
+  const Layout l = layout<M>(C, O, has_down, RESIDENT);
+  int stages = MAX_STAGES;
+  while (stages > 2 && smem_bytes<M>(l, RESIDENT, stages) > MAX_SMEM) --stages;
+  const int smem = smem_bytes<M>(l, RESIDENT, stages);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  CUtensorMap tm_halo, tm_center;
+  if (!encode_nhwc(&tm_halo, x, B, H, W, C, HALO_W, BOX_H) ||
+      !encode_nhwc(&tm_center, x, B, H, W, C, TW, TH))
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.x = (const bf16*)x;
+  p.image = (const unsigned char*)image;
+  p.b1 = (const float*)b1;
+  p.b2 = (const float*)b2;
+  p.b3 = (const float*)b3;
+  p.bd = (const float*)bd;
+  p.out = (bf16*)out;
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  p.O = O;
+  p.ntx = (W + TW - 1) / TW;
+  p.nty = (H + TH - 1) / TH;
+  p.tiles = B * p.ntx * p.nty;
+  p.nk = l.nk;
+  p.nj = l.nj;
+  p.has_down = has_down;
+  p.stages = stages;
+  p.stage_bytes = l.stage_bytes;
+  p.w2_off = l.w2_off;
+  p.w3_off = l.w3_off;
+  p.wd_off = l.wd_off;
+  cudaError_t err = cudaFuncSetAttribute(fused_bottleneck_kernel<M, RESIDENT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  fused_bottleneck_streamed_kernel<M><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w1, (const float*)b1, (const bf16*)w2,
-      (const float*)b2, (const bf16*)w3, (const float*)b3, (const bf16*)wd,
-      (const float*)bd, (bf16*)out, H, W, C, O, has_down);
+  // persistent: one block an SM, each walking tiles blockIdx.x, + gridDim.x, ...
+  const int grid = std::min(p.tiles, sm_count());
+  fused_bottleneck_kernel<M, RESIDENT><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      tm_halo, tm_center, p);
   return (int)cudaGetLastError();
+}
+
+template <int M>
+int dispatch(const void* x, const void* image, const void* b1, const void* b2, const void* b3,
+             const void* bd, void* out, int B, int H, int W, int C, int O, int has_down,
+             int resident, void* stream) {
+  return resident ? launch<M, true>(x, image, b1, b2, b3, bd, out, B, H, W, C, O, has_down, stream)
+                  : launch<M, false>(x, image, b1, b2, b3, bd, out, B, H, W, C, O, has_down,
+                                     stream);
+}
+
+bool takes(int C, int M, int O, int has_down) {
+  return C > 0 && O > 0 && C % 16 == 0 && O % 16 == 0 &&
+         (M == 16 || M == 32 || M == 64 || M == 128) && (has_down || O == C);
 }
 
 }  // namespace
 
-extern "C" int fused_bottleneck_smem_bytes(int C, int M, int O) {
-  return tile_smem_bytes(C, M, O);
-}
-
-extern "C" int fused_bottleneck_bf16(const void* x, const void* w1, const void* b1,
-                                     const void* w2, const void* b2, const void* w3,
-                                     const void* b3, const void* wd, const void* bd,
-                                     void* out, int B, int H, int W, int C, int M,
-                                     int O, int has_down, void* stream) {
-  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0 || O <= 0 || C % 16 ||
-      O % 16 || (M != 16 && M != 32 && M != 64 && M != 128) ||
-      (!has_down && O != C))
-    return (int)cudaErrorInvalidValue;
-  const int smem = fused_bottleneck_smem_bytes(C, M, O);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+// Bytes of the weight images fused_bottleneck_bf16 reads for these widths (-1
+// for widths it does not take).
+extern "C" int fused_bottleneck_image_bytes(int C, int M, int O, int has_down) {
+  if (!takes(C, M, O, has_down)) return -1;
   switch (M) {
-    case 16:
-      return launch<16>(x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, C, O,
-                        has_down, smem, stream);
-    case 32:
-      return launch<32>(x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, C, O,
-                        has_down, smem, stream);
-    case 64:
-      return launch<64>(x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, C, O,
-                        has_down, smem, stream);
-    default:
-      return launch<128>(x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, C, O,
-                         has_down, smem, stream);
+    case 16: return layout<16>(C, O, has_down, true).end;
+    case 32: return layout<32>(C, O, has_down, true).end;
+    case 64: return layout<64>(C, O, has_down, true).end;
+    default: return layout<128>(C, O, has_down, true).end;
   }
 }
 
-extern "C" int fused_bottleneck_streamed_smem_bytes(int M) {
-  return (HALO_PAD * (M + SKEW) + TH * TW * (M + SKEW) + 2 * slot_elems(M) +
-          TH * TW * LDXC) * 2 + WARPS * 256 * 4;
+// The least dynamic shared memory a block of the resident (K1) or streamed
+// (K2) form needs, with two stages (-1 for widths it does not take).
+extern "C" int fused_bottleneck_smem_bytes(int C, int M, int O, int has_down, int resident) {
+  if (!takes(C, M, O, has_down)) return -1;
+  switch (M) {
+    case 16: return smem_bytes<16>(layout<16>(C, O, has_down, resident), resident, 2);
+    case 32: return smem_bytes<32>(layout<32>(C, O, has_down, resident), resident, 2);
+    case 64: return smem_bytes<64>(layout<64>(C, O, has_down, resident), resident, 2);
+    default: return smem_bytes<128>(layout<128>(C, O, has_down, resident), resident, 2);
+  }
 }
 
-extern "C" int fused_bottleneck_streamed_bf16(const void* x, const void* w1, const void* b1,
-                                              const void* w2, const void* b2, const void* w3,
-                                              const void* b3, const void* wd, const void* bd,
-                                              void* out, int B, int H, int W, int C, int M,
-                                              int O, int has_down, void* stream) {
-  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0 || O <= 0 || C % 16 ||
-      O % 16 || (M != 16 && M != 32 && M != 64 && M != 128) ||
-      (!has_down && O != C))
+// x (B, H, W, C) bf16; image: the weight images of kernel_operands (bf16); b1,
+// b2 (M,), b3 and bd (O,) fp32 in channel order; out (B, H, W, O) bf16.
+// resident 1 launches K1 (w1, w2, w3 kept in shared memory), 0 K2 (every
+// weight streamed). Launches on the given stream, allocates nothing, does not
+// synchronise; returns cudaGetLastError(), or cudaErrorInvalidValue for
+// shapes it does not take.
+extern "C" int fused_bottleneck_bf16(const void* x, const void* image, const void* b1,
+                                     const void* b2, const void* b3, const void* bd, void* out,
+                                     int B, int H, int W, int C, int M, int O, int has_down,
+                                     int resident, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || !takes(C, M, O, has_down))
     return (int)cudaErrorInvalidValue;
-  const int smem = fused_bottleneck_streamed_smem_bytes(M);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   switch (M) {
     case 16:
-      return launch_streamed<16>(x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, C, O,
-                                 has_down, smem, stream);
+      return dispatch<16>(x, image, b1, b2, b3, bd, out, B, H, W, C, O, has_down, resident,
+                          stream);
     case 32:
-      return launch_streamed<32>(x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, C, O,
-                                 has_down, smem, stream);
+      return dispatch<32>(x, image, b1, b2, b3, bd, out, B, H, W, C, O, has_down, resident,
+                          stream);
     case 64:
-      return launch_streamed<64>(x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, C, O,
-                                 has_down, smem, stream);
+      return dispatch<64>(x, image, b1, b2, b3, bd, out, B, H, W, C, O, has_down, resident,
+                          stream);
     default:
-      return launch_streamed<128>(x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, C, O,
-                                  has_down, smem, stream);
+      return dispatch<128>(x, image, b1, b2, b3, bd, out, B, H, W, C, O, has_down, resident,
+                           stream);
   }
 }
 
 extern "C" const char* fused_bottleneck_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+#ifdef BOTTLENECK_PROFILE
+extern "C" int fused_bottleneck_prof_read(unsigned long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, g_prof, sizeof(g_prof));
+}
+
+extern "C" int fused_bottleneck_prof_reset() {
+  const unsigned long long z[32] = {};
+  return (int)cudaMemcpyToSymbol(g_prof, z, sizeof(g_prof));
+}
+#endif

@@ -23,10 +23,10 @@
 // of pooled pixels; each thread makes eight channels of one pixel of the
 // tile's 10x18 pooled halo from its nine raw pixels (16-byte loads, the raw
 // window's overlap served by L1/L2: 2.25 loads per raw pixel, and the halo's
-// 1.4x), writes it where K1 keeps its input halo, and the block goes on as K1
-// does: the kernel is the stem form of K1's, fused_bottleneck_kernel<M, true>
-// of bottleneck_tile.cuh. A pooled halo pixel outside the pooled map is
-// conv2's zero padding, as in K1.
+// 1.4x), writes it into the block's input halo in shared memory, and the block
+// goes on with WMMA bf16 fragments (fused_stem_bottleneck_kernel<M> of
+// bottleneck_tile.cuh). A pooled halo pixel outside the pooled map is conv2's
+// zero padding.
 //
 // C interface (bound with ctypes): fused_stem_bottleneck_bf16 launches on the
 // given stream, allocates nothing, does not synchronise, and returns
@@ -36,17 +36,17 @@
 
 namespace {
 
-// K4 is fused_bottleneck_kernel<M, true> of bottleneck_tile.cuh.
+// K4 is fused_stem_bottleneck_kernel<M> of bottleneck_tile.cuh.
 template <int M>
 int launch(const void* x, const void* g1, const void* t1, const void* w1, const void* b1,
            const void* w2, const void* b2, const void* w3, const void* b3, const void* wd,
            const void* bd, void* out, int B, int H, int W, int C, int O, int smem,
            void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_bottleneck_kernel<M, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fused_stem_bottleneck_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  fused_bottleneck_kernel<M, true><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  fused_stem_bottleneck_kernel<M><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const bf16*)x, (const float*)g1, (const float*)t1, (const bf16*)w1,
       (const float*)b1, (const bf16*)w2, (const float*)b2, (const bf16*)w3,
       (const float*)b3, (const bf16*)wd, (const float*)bd, (bf16*)out, H, W, C, O,

@@ -1,5 +1,5 @@
 """Tests of the port that need the card: the CUDA kernels K1, K2 (the fused
-bottleneck, whole-halo and streamed), K3 (the fused int8 bottleneck), K4
+bottleneck, weights resident and streamed), K3 (the fused int8 bottleneck), K4
 (stem + layer1_0) and K5 (the bone splat) against their plain versions, the
 unfused int8 conv's integers against the CPU's, and the bf16 and int8
 forwards with the kernels against the fp32 forward.
@@ -49,6 +49,8 @@ def _folded(rng, c, mid, o, down, dev):
     ((2, 64, 64, 256), 64, True),
     ((1, 10, 20, 32), 16, True),   # ragged tiles on both axes
     ((3, 9, 16, 48), 32, False),
+    ((5, 64, 64, 256), 64, False),  # 160 tiles: more than one per SM
+    ((1, 64, 64, 256), 64, False),  # 32 tiles: fewer blocks than SMs
 ])
 def test_cuda_kernel_matches_plain(shape, mid, down):
     dev = _cuda_or_skip()
@@ -76,6 +78,8 @@ def test_cuda_kernel_matches_plain(shape, mid, down):
     ((1, 10, 20, 32), 16, 32, True, 5),       # ragged tiles on both axes
     ((3, 9, 17, 48), 32, 48, False, 3),       # C not a multiple of a chunk
     ((1, 12, 30, 144), 64, 80, True, 2),      # last w3 block narrower than mid
+    ((20, 32, 32, 512), 128, 512, False, 4),  # 160 tiles: more than one per SM
+    ((1, 32, 32, 512), 128, 512, False, 4),   # 8 tiles: fewer blocks than SMs
 ])
 def test_cuda_streamed_kernel_matches_plain(shape, mid, o, down, bands):
     """K2 (bands > 0) against the plain version; K1's count stays."""
@@ -120,6 +124,50 @@ def test_cuda_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="shared memory"):
         f(torch.zeros(1, 32, 32, 512, device=dev, dtype=torch.bfloat16), *big)
     assert (f.launches, f.streamed_launches) == before  # nothing launched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,mid,bands", [
+    ((3, 64, 64, 256), 64, 0),       # K1
+    ((4, 32, 32, 512), 128, 4),      # K2
+])
+def test_cuda_kernel_back_to_back_launches_agree(shape, mid, bands):
+    """Two launches on one stream, the second while the first may still
+    run: the persistent blocks' pipelines share nothing, the outputs are
+    equal bit for bit."""
+    dev = _cuda_or_skip()
+    rng = np.random.RandomState(14)
+    ws = _folded(rng, shape[-1], mid, shape[-1], False, dev)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    operands = fb.kernel_operands(*ws, bands=bands)
+    first = fb.launch(x, operands, bands)
+    second = fb.launch(x, operands, bands)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_is_wgmma_fed_by_tma():
+    """The SASS of K1 and K2 (both forms of the one kernel template, every
+    mid) has tensor-core products through wgmma (HGMMA) and TMA loads
+    (UTMALDG); the kernels they replaced are gone."""
+    _cuda_or_skip()
+    import shutil
+    import subprocess
+
+    from dir_tpu_torch.ops import cuda_build
+    fb.build()
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [cuobjdump, "--dump-sass", cuda_build.library_path(fb.NAME)],
+        capture_output=True, text=True, check=True).stdout
+    functions = [f for f in sass.split("Function : ")[1:]
+                 if "fused_bottleneck_kernel" in f.splitlines()[0]]
+    assert len(functions) == 8       # mid 16, 32, 64, 128; resident, streamed
+    for f in functions:
+        assert "HGMMA" in f and "UTMALDG" in f, f.splitlines()[0]
+    assert "streamed_kernel" not in sass
 
 
 def _splat_inputs(seed, b, c, dev, dtype):
