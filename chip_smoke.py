@@ -26,7 +26,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      configuration B (K1 at layer1, K2 at layer2, the materialized bone
      splat through K5) and in configuration C (int8 static serving,
      calibrated on a seeded batch: K3 at layer1 and layer2, no other
-     kernel); check every output and each kernel's launches per request,
+     kernel, each block's K3 operands made once over the three requests);
+     check every output and each kernel's launches per request,
      hold the kernels against their plain versions on what the path fed
      them at batch 64, compare each final stage with the port's fp32 forward
      on the card (also through the port's batch_metrics), and time the
@@ -314,9 +315,10 @@ def int8_phase(q8, quant):
         ref = q8.fused_bottleneck_int8_infer_plain(x, *ws[:6], *scales)
         lib_err = float((lib.float() - ref.float()).abs().max())
         del lib, ref
-        # the kernel on operands prepared once, and the whole wrapper, which
-        # quantizes and orders the weights in some sixty small launches a
-        # call and so can be bound by the host
+        # the kernel on operands prepared once (as configuration C's blocks
+        # keep them), and the whole wrapper, which quantizes and lays out the
+        # weights in some sixty small launches a call and so can be bound by
+        # the host
         operands = q8.kernel_operands(*ws[:6], *scales)
         kernel_ms = time_cuda_ms(lambda: q8.launch(x, operands), 20)
         wrapper_ms = time_cuda_ms(
@@ -530,6 +532,7 @@ def serve_phase(mods):
     """Requests through the bf16 flagship in configurations A, B and C,
     checked against fp32."""
     from dir_tpu_torch.models import dir as dir_module
+    from dir_tpu_torch.models import resnet as resnet_module
     from dir_tpu_torch.models.dir import DIR
     from dir_tpu_torch.ops.quant import scale_from_amax
     from dir_tpu_torch.serve import (CONFIG_B, CONFIG_C, build_flagship,
@@ -599,7 +602,20 @@ def serve_phase(mods):
         outputs["B"], launches["B"] = drive(mods, "B", infers["B"], images)
     finally:
         dir_module.bone_splat = bs.bone_splat
-    outputs["C"], launches["C"] = drive(mods, "C", infers["C"], images)
+    # each K3 block makes its operands on its first request and keeps them
+    made = []
+    real_operands = resnet_module.kernel_operands
+    resnet_module.kernel_operands = (
+        lambda *a, **k: made.append(1) or real_operands(*a, **k))
+    try:
+        outputs["C"], launches["C"] = drive(mods, "C", infers["C"], images)
+    finally:
+        resnet_module.kernel_operands = real_operands
+    say(f"configuration C: K3 operands made {len(made)} times over "
+        f"{len(BATCHES)} requests (5 blocks)")
+    if len(made) != EXPECTED["C"][2]:
+        raise RuntimeError(f"configuration C made K3's operands {len(made)} "
+                           "times, not once per block")
     for h in hooks:
         h.remove()
 

@@ -18,7 +18,8 @@ import torch.nn.functional as F
 
 from dir_tpu_torch.models.layers import conv2d
 from dir_tpu_torch.ops.fused_bottleneck import fold_bn, fused_bottleneck_infer
-from dir_tpu_torch.ops.fused_bottleneck_int8 import fused_bottleneck_int8_infer
+from dir_tpu_torch.ops.fused_bottleneck_int8 import (
+    Operands, fused_bottleneck_int8_infer, kernel_operands, launch)
 from dir_tpu_torch.ops.quant import (ActAmax, module_act_scale,
                                      module_quant_conv, quant_conv)
 
@@ -62,6 +63,8 @@ class Bottleneck(nn.Module):
         self.downsample = (nn.Sequential(
             nn.Conv2d(inplanes, out, 1, stride, bias=False),
             nn.BatchNorm2d(out)) if downsample else None)
+        # K3's operands, kept with what they were made from (k3_operands)
+        self._k3_cache = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # The guard of the JAX package: not training, stride 1, >= 128
@@ -110,6 +113,52 @@ class Bottleneck(nn.Module):
                                    *self.folded_weights(), bands=bands)
         return y.permute(0, 3, 1, 2)
 
+    def _k3_sources(self) -> list:
+        """Every tensor K3's operands are made from: the convs' weights,
+        the BNs' parameters and statistics (the projection's too) and the
+        three calibrated scales."""
+        mods = [self.conv1, self.bn1, self.conv2, self.bn2, self.conv3,
+                self.bn3]
+        if self.downsample is not None:
+            mods += list(self.downsample)
+        tensors = [t for m in mods for t in (*m.parameters(recurse=False),
+                                             *m.buffers(recurse=False))
+                   if t.is_floating_point()]
+        return tensors + [getattr(self.quant_stats, n)
+                          for n in ("conv1_in", "conv2_in", "conv3_in")]
+
+    def k3_operands(self) -> Operands:
+        """The operands of K3 for this block (``kernel_operands`` of the
+        folded weights and the calibrated scales), made once and kept. They
+        are made anew when any source tensor (:meth:`_k3_sources`) was
+        replaced, moved or changed in place (its identity, storage or
+        version), or a BN's eps changed; never while calibrating, when the
+        scales are still moving. A write through ``.data`` bypasses the
+        version, as everywhere in autograd. Inference tensors keep no
+        version, so operands made from them are not kept."""
+        if self.quant_stats.calibrating:
+            raise RuntimeError("K3's operands are not made while "
+                               "calibrating")
+        try:
+            key = [(t, t.data_ptr(), t._version)
+                   for t in self._k3_sources()]
+        except RuntimeError:                 # an inference tensor
+            key = None
+        key_eps = tuple(m.eps for m in self.modules()
+                        if isinstance(m, nn.BatchNorm2d))
+        cached = self._k3_cache
+        if (key is not None and cached is not None
+                and cached[1] == key_eps and len(cached[0]) == len(key)
+                and all(a is b and pa == pb and va == vb
+                        for (a, pa, va), (b, pb, vb) in zip(cached[0], key))):
+            return cached[2]
+        with torch.no_grad():
+            scales = [module_act_scale(self.quant_stats, n, None, True)
+                      for n in ("conv1_in", "conv2_in", "conv3_in")]
+            w = self.folded_weights()
+            ops = kernel_operands(*w[:6], *scales, *w[6:])
+        self._k3_cache = None if key is None else (key, key_eps, ops)
+        return ops
 
     def _quant_infer(self, x: torch.Tensor) -> torch.Tensor:
         """Run the block's convs int8-quantized on the NHWC view of ``x``:
@@ -118,7 +167,6 @@ class Bottleneck(nn.Module):
         stay in the trunk dtype."""
         dt, st = self.dtype, (self.stride, self.stride)
         xn = x.permute(0, 2, 3, 1)
-        w1, b1, w2, b2, w3, b3, wd, bd = self.folded_weights()
 
         def scale(name, v):
             return module_act_scale(self.quant_stats, name, v,
@@ -128,17 +176,24 @@ class Bottleneck(nn.Module):
         # reduction over the whole batch), never while calibrating (the
         # unfused route records the maxes), stride 1, >= 128 input channels;
         # layer1 at >= 4096 positions, layer2 through quant_fused_l2_bands.
+        # On the card it launches on the block's kept operands; on the CPU
+        # the wrapper runs the plain version.
         spatial = x.shape[2] * x.shape[3]
         if (self.quant_fused and self.quant_static and self.stride == 1
                 and x.shape[1] >= 128 and not self.quant_stats.calibrating
                 and (spatial >= 4096
                      or (spatial >= 1024 and self.quant_fused_l2_bands))):
+            if xn.device.type == "cuda":
+                return launch(xn.to(dt), self.k3_operands()).permute(
+                    0, 3, 1, 2)
+            w1, b1, w2, b2, w3, b3, wd, bd = self.folded_weights()
             y = fused_bottleneck_int8_infer(
                 xn.to(dt), w1, b1, w2, b2, w3, b3, scale("conv1_in", xn),
                 scale("conv2_in", xn), scale("conv3_in", xn), wd, bd,
                 bands=1 if spatial >= 4096 else self.quant_fused_l2_bands)
             return y.permute(0, 3, 1, 2)
 
+        w1, b1, w2, b2, w3, b3, wd, bd = self.folded_weights()
         out = torch.relu(quant_conv(xn, w1[None, None], bias=b1, out_dtype=dt,
                                     act_scale=scale("conv1_in", xn)))
         out = torch.relu(quant_conv(out, w2, st, ((1, 1), (1, 1)), b2, dt,

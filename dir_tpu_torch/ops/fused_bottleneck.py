@@ -115,15 +115,16 @@ def _pad(m: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return F.pad(m, (0, cols - m.shape[1], 0, rows - m.shape[0]))
 
 
-def _panels(m: torch.Tensor) -> torch.Tensor:
-    """(R, K) with K a multiple of 64 -> (K/64, R, 64): each 64-column panel
+def _panels(m: torch.Tensor, width: int = KC) -> torch.Tensor:
+    """(R, K) with K a multiple of ``width`` -> (K/width, R, width): each
+    panel of ``width`` columns (128 bytes a row: 64 bf16 or 128 int8 values)
     as wgmma reads it K-major with the 128-byte swizzle (the 16-byte chunk c
     of row r stored at chunk c ^ (r % 8))."""
     r, k = m.shape
-    p = m.reshape(r, k // KC, 8, 8).permute(1, 0, 2, 3)
+    p = m.reshape(r, k // width, 8, width // 8).permute(1, 0, 2, 3)
     rows = torch.arange(r, device=m.device)
     chunk = torch.arange(8, device=m.device)[None, :] ^ (rows % 8)[:, None]
-    return p[:, rows[:, None], chunk].reshape(k // KC, r, KC)
+    return p[:, rows[:, None], chunk].reshape(k // width, r, width)
 
 
 @functools.lru_cache(maxsize=64)

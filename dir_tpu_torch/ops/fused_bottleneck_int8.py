@@ -8,7 +8,13 @@ here; the three calibrated activation scales (the inputs of conv1, which
 is also the projection's input, of conv2 and of conv3) are device scalars
 and are never read on the host. On a CUDA tensor
 :func:`fused_bottleneck_int8_infer` launches the hand-written Hopper kernel
-of ``csrc/fused_bottleneck_int8.cu``; on a CPU tensor it runs
+of ``csrc/fused_bottleneck_int8.cu``, a persistent, warp-specialised
+template (TMA halo loads, s8 ``wgmma`` products) whose form follows from
+the widths: weights resident in shared memory (the layer1 shape) or
+streamed through the ring of stages (the layer2 shape).
+:func:`kernel_operands` lays the quantized weights out as the kernel reads
+them and :func:`launch` launches on them; a caller may keep the operands
+(``models/resnet.py:Bottleneck.k3_operands`` does). On a CPU tensor it runs
 :func:`fused_bottleneck_int8_infer_plain`, the plain PyTorch version with
 the kernel's rounding points. There is no other fallback: a CUDA tensor the
 kernel does not take raises.
@@ -22,19 +28,29 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from dir_tpu_torch.ops import cuda_build
+from dir_tpu_torch.ops.fused_bottleneck import (_check, _pad, _panels,
+                                              channel_order)
 from dir_tpu_torch.ops.quant import (conv_s32, int_matmul,
                                      quantize_weight_per_channel)
 
 NAME = "fused_bottleneck_int8"       # csrc/fused_bottleneck_int8.cu
 # The dequantize is a product and a sum, each rounded in fp32, as in the
-# plain version: no FMA contraction.
-NVCC_EXTRA_FLAGS = ("-fmad=false",)
-# H100: dynamic shared memory one block may use.
-_MAX_SMEM = 232448
+# plain version: no FMA contraction. -ldl: dlopen of the driver's
+# cuTensorMapEncodeTiled.
+NVCC_EXTRA_FLAGS = ("-fmad=false", "-ldl")
+# The kernel's layout constants (csrc/fused_bottleneck_int8.cu), in bytes.
+_MAX_SMEM = 232448                   # H100: dynamic shared memory of a block
+_PANEL = 128                         # int8 K values (bytes) of a panel row
+_X_SLOT = 25 * 1024                  # a halo box's stage
+_XC = 16 * 8 * 128                   # the tile's own pixels, one box
+_FIXED = 2 * 1024                    # alignment and the mbarriers
+_HALO_ROWS, _Y1_SKEW = 192, 16       # xq, then y1q in its place
+_MAX_STAGES, _MIN_RESIDENT_STAGES = 6, 3
 
 
 def _quantize(v: torch.Tensor, inv_s: torch.Tensor) -> torch.Tensor:
@@ -104,56 +120,135 @@ def fused_bottleneck_int8_infer_plain(x, w1, b1, w2, b2, w3, b3, s_in,
     return torch.relu(y3 + res).reshape(b, h, w, -1)
 
 
-def build() -> str:
-    """Compile the kernel library if it is missing or older than its
-    source; returns the ``-Xptxas -v`` report of the last build."""
-    return cuda_build.build(NAME, NVCC_EXTRA_FLAGS)
+def k_order(k: int, device=None) -> torch.Tensor:
+    """The input channel at each of ``k`` (a multiple of 32) K positions of
+    w3 in the image: in every group of 32, position ``16 half + 4 t + i``
+    holds channel ``2 t + (idx % 2) + 8 (idx // 2)`` with
+    ``idx = 4 half + i``. A thread (t = lane % 4) holds those channels,
+    {2t, 2t+1, 2t+8, 2t+9, 2t+16, 2t+17, 2t+24, 2t+25}, in the s32
+    accumulators of a 32-column group of conv2, where conv3's s8 k32 A
+    fragment wants K positions {4t..4t+3, 4t+16..4t+19}: the kernel packs
+    what it holds and the weights' K follows."""
+    p = torch.arange(k, device=device)
+    r = p % 32
+    t, i = (r % 16) // 4, r % 4
+    idx = 4 * (r // 16) + i
+    return p - r + 2 * t + idx % 2 + 8 * (idx // 2)
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    build()
-    lib = ctypes.CDLL(cuda_build.library_path(NAME))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fused_bottleneck_int8_bf16.argtypes = [vp] * 15 + [ci] * 7 + [vp]
-    lib.fused_bottleneck_int8_bf16.restype = ci
-    lib.fused_bottleneck_int8_smem_bytes.argtypes = [ci, ci, ci]
-    lib.fused_bottleneck_int8_smem_bytes.restype = ci
-    lib.fused_bottleneck_int8_error_string.argtypes = [ci]
-    lib.fused_bottleneck_int8_error_string.restype = ctypes.c_char_p
-    return lib
+class Layout(NamedTuple):
+    """The kernel's shapes for one set of widths (``layout``)."""
+    image_bytes: int   # of the int8 weight image
+    smem: int          # dynamic shared memory of a block
+    resident: bool     # w1, w2, w3 kept in shared memory (else streamed)
+    stages: int        # of the ring
+    nj: int            # conv3 chunks of mid output channels
 
 
-def _check(t: torch.Tensor, name: str, shape: tuple, device) -> None:
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, x on {device}")
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-def _kernel_order(wq: torch.Tensor) -> torch.Tensor:
-    """(K, N) int8 -> (N, K) contiguous, the rows of every group of 32
-    output channels in the order the kernel's accumulator fragments hold
-    them: row ``j*8 + n`` of a group is channel ``(n>>1)*8 + j*2 + (n&1)``,
-    so that a thread's eight values of four 16x8 fragments are eight
-    consecutive channels (one 16-byte store)."""
-    n = wq.shape[1]
-    p = torch.arange(32, device=wq.device)
-    j, n8 = p // 8, p % 8
-    within = (n8 // 2) * 8 + j * 2 + (n8 % 2)
-    rows = (torch.arange(0, n, 32, device=wq.device)[:, None]
-            + within[None, :]).reshape(-1)
-    return wq.t()[rows].contiguous()
+@functools.lru_cache(maxsize=64)
+def layout(c: int, mid: int, o: int, has_down: bool) -> Layout:
+    """The image size, shared memory and form of the kernel for these
+    widths, as ``csrc/fused_bottleneck_int8.cu:layout`` computes them: the
+    resident form where w1, w2 and w3 leave room for three stages."""
+    ncp, nj = _ceil(c, _PANEL), _ceil(o, mid)
+    panel = mid * _PANEL                       # one panel of mid rows
+    wd_off = (ncp + _ceil(9 * mid, _PANEL) + _ceil(nj * mid, _PANEL)) * panel
+    end = wd_off + (nj * ncp * panel if has_down else 0)
+
+    def stage(resident):
+        s = max(_X_SLOT, _XC + panel) if has_down else _X_SLOT
+        if not resident:
+            s = max(s, _X_SLOT + panel)
+        return _ceil(s, 1024) * 1024
+
+    def smem(resident, stages):
+        xq = _ceil(_HALO_ROWS * max(_PANEL, mid + _Y1_SKEW), 1024) * 1024
+        vectors = 4 * (4 * mid + 2 * nj * mid * (1 + has_down))
+        return (_FIXED + stages * stage(resident)
+                + (wd_off if resident else 0) + xq + vectors)
+
+    def fit(resident):
+        return next((s for s in range(_MAX_STAGES, 1, -1)
+                     if smem(resident, s) <= _MAX_SMEM), 0)
+
+    resident = fit(True) >= _MIN_RESIDENT_STAGES
+    stages = fit(resident)
+    return Layout(end, smem(resident, max(stages, 2)), resident, stages, nj)
+
+
+@functools.lru_cache(maxsize=64)
+def _image_index(c: int, mid: int, o: int, has_down: bool,
+                 device: torch.device) -> torch.Tensor:
+    """Where each byte of the weight image comes from: positions in
+    ``[0, w1q, w2q, w3q, wdq]`` flattened and concatenated (0 is the zero of
+    the padding). Every weight is an (N, K) K-major matrix of units side by
+    side along K, cut into 128-wide swizzled panels (``_panels``), K
+    zero-padded: w1 (mid, C); w2 (mid, 9 mid), tap t at K t * mid; w3
+    (mid, nj * mid), conv3 chunk j at K j * mid; wd per chunk j (mid, C).
+    The K of w3 is in :func:`k_order` (its A comes from registers; w1's and
+    wd's from the quantized x in shared memory, in channel order), the N of
+    w3 and wd in ``channel_order`` (O zero-padded to whole chunks). The
+    layout is made once per shape by running the packing on the positions
+    themselves; a call is then one gather."""
+    lay = layout(c, mid, o, has_down)
+    nj = lay.nj
+    sizes = [c * mid, 9 * mid * mid, mid * o] + ([c * o] if has_down else [])
+    pos = torch.arange(1, 1 + sum(sizes), dtype=torch.int32, device=device)
+    w1, w2, w3, *wd = torch.split(pos, sizes)
+    w1, w2, w3 = (w1.reshape(c, mid), w2.reshape(9, mid, mid),
+                  w3.reshape(mid, o))
+    op = nj * mid
+    order = channel_order(op, device)
+
+    def panels(m):                 # (N, K) -> panels, K padded to 128
+        return _panels(_pad(m, m.shape[0], _ceil(m.shape[1], _PANEL) * _PANEL),
+                       _PANEL)
+
+    def out_rows(w):               # (K, O) -> (Op, K) in channel_order
+        return _pad(w, w.shape[0], op)[:, order].t()
+
+    parts = [panels(w1.t()),
+             panels(torch.cat([w2[t].t() for t in range(9)], dim=1))]
+    w3r = out_rows(w3[k_order(mid, device)])
+    parts.append(panels(torch.cat([w3r[j * mid:(j + 1) * mid]
+                                   for j in range(nj)], dim=1)))
+    if has_down:
+        wdr = out_rows(wd[0].reshape(c, o))
+        parts += [panels(wdr[j * mid:(j + 1) * mid]) for j in range(nj)]
+    index = torch.cat([t.reshape(-1) for t in parts])
+    assert index.numel() == lay.image_bytes
+    return index
+
+
+class Operands(NamedTuple):
+    """What the CUDA kernel reads beside ``x`` (:func:`kernel_operands`)."""
+    image: torch.Tensor        # int8: the w1, w2, w3 (and wd) images, in order
+    inv: torch.Tensor          # fp32 (3,): 1 / the activation scales
+    m1: torch.Tensor           # fp32 (mid,): dequantize of conv1
+    b1: torch.Tensor           # fp32 (mid,)
+    m2: torch.Tensor           # fp32 (mid,)
+    b2: torch.Tensor           # fp32 (mid,)
+    m3: torch.Tensor           # fp32 (O,)
+    b3: torch.Tensor           # fp32 (O,)
+    md: torch.Tensor | None    # fp32 (O,), or None for the identity residual
+    bd: torch.Tensor | None    # fp32 (O,), or None
+    c: int
+    mid: int
+    o: int
 
 
 def kernel_operands(w1, b1, w2, b2, w3, b3, s_in, s_mid1, s_mid2, wd=None,
-                    bd=None) -> tuple:
+                    bd=None) -> Operands:
     """What the CUDA kernel reads beside ``x``, made on the weights' device:
-    ``(inv, w1t, m1, b1, w2t, m2, b2, w3t, m3, b3, wdt, md, bd)`` with the
-    int8 weights output-channel major in the kernel's order
-    (:func:`_kernel_order`) and every vector fp32 and contiguous; the last
-    three None without a projection. They depend on the block's weights and
-    scales only, so a caller that serves many requests may keep them."""
+    the weights quantized per output channel and laid out in one int8 image
+    (:func:`_image_index`: one gather), the reciprocal activation scales and
+    the dequantize vectors ``act_scale * w_scale[o]`` and biases, fp32 in
+    channel order. They depend on the block's weights and scales only, so a
+    caller that serves many requests may keep them."""
     dev = w1.device
     c, mid = w1.shape
     o = w3.shape[-1]
@@ -176,16 +271,56 @@ def kernel_operands(w1, b1, w2, b2, w3, b3, s_in, s_mid1, s_mid2, wd=None,
                          f"32, 64, 128; got {c}, {mid}, {o}")
     w1q, w2q, w3q, wdq, inv, m1, m2, m3, md = _quantized_operands(
         w1, w2, w3, wd, s_in, s_mid1, s_mid2)
-    w2t = torch.stack([_kernel_order(t) for t in w2q.reshape(9, mid, mid)])
-    ops = [inv, _kernel_order(w1q), m1, b1, w2t, m2, b2, _kernel_order(w3q),
-           m3, b3]
-    ops += [_kernel_order(wdq), md, bd] if has_down else [None, None, None]
-    return tuple(t if t is None or t.dtype == torch.int8
-                 else t.float().contiguous() for t in ops)
+    srcs = [w1q, w2q, w3q] + ([wdq] if has_down else [])
+    flat = torch.cat([torch.zeros(1, dtype=torch.int8, device=dev)]
+                     + [w.reshape(-1) for w in srcs])
+    image = flat[_image_index(c, mid, o, has_down, dev)]
+    f32 = [t if t is None else t.float().contiguous()
+           for t in (inv, m1, b1, m2, b2, m3, b3, md, bd)]
+    return Operands(image, *f32, c, mid, o)
 
 
-def launch(x: torch.Tensor, operands: tuple) -> torch.Tensor:
-    """Launch K3 on a CUDA ``x`` with the ``operands`` of
+def build() -> str:
+    """Compile the kernel library if it is missing or older than its
+    source; returns the ``-Xptxas -v`` report of the last build."""
+    return cuda_build.build(NAME, NVCC_EXTRA_FLAGS)
+
+
+def bind(path: str) -> ctypes.CDLL:
+    """Load a build of the kernel library and declare its C interface."""
+    lib = ctypes.CDLL(path)
+    vp, ci, pi = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.fused_bottleneck_int8_bf16.argtypes = [vp] * 12 + [ci] * 7 + [vp]
+    lib.fused_bottleneck_int8_bf16.restype = ci
+    lib.fused_bottleneck_int8_image_bytes.argtypes = [ci] * 4
+    lib.fused_bottleneck_int8_image_bytes.restype = ci
+    lib.fused_bottleneck_int8_smem_bytes.argtypes = [ci] * 4 + [pi, pi]
+    lib.fused_bottleneck_int8_smem_bytes.restype = ci
+    lib.fused_bottleneck_int8_error_string.argtypes = [ci]
+    lib.fused_bottleneck_int8_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    build()
+    return bind(cuda_build.library_path(NAME))
+
+
+def library_layout(lib: ctypes.CDLL, c: int, mid: int, o: int,
+                   has_down: bool) -> tuple:
+    """``(image bytes, shared memory, resident, stages)`` as the library
+    computes them, to hold :func:`layout` against."""
+    resident, stages = ctypes.c_int(), ctypes.c_int()
+    smem = lib.fused_bottleneck_int8_smem_bytes(
+        c, mid, o, int(has_down), ctypes.byref(resident),
+        ctypes.byref(stages))
+    return (lib.fused_bottleneck_int8_image_bytes(c, mid, o, int(has_down)),
+            smem, bool(resident.value), stages.value)
+
+
+def launch(x: torch.Tensor, operands: Operands) -> torch.Tensor:
+    """Launch K3 on a CUDA ``x`` with the operands of
     :func:`kernel_operands`; raises on anything the kernel does not take."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA kernel takes bf16 activations, got "
@@ -194,33 +329,45 @@ def launch(x: torch.Tensor, operands: tuple) -> torch.Tensor:
         raise ValueError("x must be a contiguous NHWC (B, H, W, C) tensor "
                          "(an NCHW tensor in channels_last, permuted)")
     b, h, w, c = x.shape
-    w1t, w3t = operands[1], operands[7]
-    mid, o = w1t.shape[0], w3t.shape[0]
-    if w1t.shape[1] != c or w1t.device != x.device:
-        raise ValueError(f"the operands are for C={w1t.shape[1]} on "
-                         f"{w1t.device}, x has C={c} on {x.device}")
-    if not 0 < b <= 65535:
-        raise ValueError(f"batch {b} outside 1..65535")
-    lib = _library()
-    smem = lib.fused_bottleneck_int8_smem_bytes(c, mid, o)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"C={c}, mid={mid}, O={o} need {smem} bytes of "
-                         "shared memory, beyond the block's")
-    if x.data_ptr() % 16 or any(t.data_ptr() % 16 for t in operands
-                                if t is not None and t.dtype == torch.int8):
-        raise ValueError("x and the weights must be 16-byte aligned")
-    out = torch.empty((b, h, w, o), dtype=torch.bfloat16, device=x.device)
+    op = operands
+    if op.c != c or op.image.device != x.device:
+        raise ValueError(f"the operands are for C={op.c} on "
+                         f"{op.image.device}, x has C={c} on {x.device}")
+    if b <= 0:
+        raise ValueError(f"batch {b} is empty")
+    lay = layout(c, op.mid, op.o, op.md is not None)
+    if lay.smem > _MAX_SMEM:
+        raise ValueError(f"C={c}, mid={op.mid}, O={op.o} need {lay.smem} "
+                         "bytes of shared memory, beyond the block's")
+    # TMA, the bulk copies and the epilogue's vector loads read 16-byte
+    # aligned addresses
+    if any(t.data_ptr() % 16 for t in (x, *op[:10]) if t is not None):
+        raise ValueError("x, the weight image and the vectors must be "
+                         "16-byte aligned")
+    out = launch_on(_library(), x, op)
+    fused_bottleneck_int8_infer.launches += 1
+    return out
+
+
+def launch_on(lib: ctypes.CDLL, x: torch.Tensor,
+              op: Operands) -> torch.Tensor:
+    """One launch through ``lib`` (:func:`bind`) on checked inputs; counts
+    nothing."""
+    b, h, w, c = x.shape
+    has_down = op.md is not None
+    if op.image.numel() != lib.fused_bottleneck_int8_image_bytes(
+            c, op.mid, op.o, int(has_down)):
+        raise ValueError("the weight image does not have the kernel's size")
+    out = torch.empty((b, h, w, op.o), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.fused_bottleneck_int8_bf16(
-            x.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in operands),
-            out.data_ptr(), b, h, w, c, mid, o,
-            int(operands[10] is not None), stream)
+            x.data_ptr(), *(None if t is None else t.data_ptr()
+                            for t in op[:10]),
+            out.data_ptr(), b, h, w, c, op.mid, op.o, int(has_down), stream)
     if rc != 0:
         msg = lib.fused_bottleneck_int8_error_string(rc).decode()
         raise RuntimeError(f"fused int8 bottleneck launch failed: {msg}")
-    fused_bottleneck_int8_infer.launches += 1
     return out
 
 
@@ -233,10 +380,11 @@ def fused_bottleneck_int8_infer(x, w1, b1, w2, b2, w3, b3, s_in, s_mid1,
     ``H % bands`` must be 0, as in the JAX package, though the kernel's
     tiling does not depend on ``bands``. A CUDA ``x`` must be bf16 and
     NHWC-contiguous and goes to the kernel (:func:`kernel_operands`, some
-    sixty small launches that quantize and order the weights, then
-    :func:`launch`); a CPU ``x`` goes to the plain version. ``fused_bottleneck_int8_infer.launches`` counts the kernel's
-    launches, on the card only; ``.plain_runs`` counts the CPU calls that
-    ran the plain version in its place.
+    sixty small launches that quantize the weights and lay them out, then
+    :func:`launch`); a CPU ``x`` goes to the plain version.
+    ``fused_bottleneck_int8_infer.launches`` counts the kernel's launches,
+    on the card only; ``.plain_runs`` counts the CPU calls that ran the
+    plain version in its place.
     """
     if bands < 1 or x.shape[1] % bands:
         raise ValueError(f"bands={bands} must be >= 1 and divide "

@@ -8,8 +8,9 @@ bottleneck, calibrated here on 8 seeded images), warms it up, then traces
 one request at each of batch 1, 8 and 64 with
 ``torch.profiler`` and prints, per batch, one JSON line: the request's
 wall time, the device's busy time and idle share over it, the number of
-kernel launches, and the 15 kernels that take the most device time. Run
-from the repository root on a machine with a CUDA device:
+kernel launches, and the 15 kernels that take the most device time; the
+card's name and power limit come first. Run from the repository root on a
+machine with a CUDA device:
 
     python -m dir_tpu_torch.profile_serve [--config {A,B,C}]
 """
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import time
 
 import numpy as np
@@ -83,7 +85,9 @@ def main() -> None:
         device="cuda", seed=0,
         **{"A": {}, "B": CONFIG_B, "C": CONFIG_C}[args.config])
     infer = make_infer(model, mano_l, mano_r)
-    print(torch.cuda.get_device_name(0), flush=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     rng = np.random.RandomState(0)
     if args.config == "C":
         calibrate_static_scales(

@@ -330,6 +330,10 @@ def _int8_mismatch(out, ref):
     ((1, 10, 20, 32), 32, 32, True, 5),       # ragged tiles on both axes
     ((3, 9, 17, 64), 32, 96, True, 3),
     ((1, 12, 30, 160), 64, 160, False, 2),
+    ((1, 96, 192, 128), 32, 128, False, 1),   # 144 tiles at batch 1
+    ((5, 64, 64, 256), 64, 256, False, 1),    # 160 tiles, resident
+    ((20, 32, 32, 512), 128, 512, False, 4),  # 320 tiles, streamed
+    ((3, 32, 32, 512), 128, 512, True, 4),    # 48 tiles, streamed projection
 ])
 def test_cuda_int8_kernel_matches_plain(shape, mid, o, down, bands):
     """K3 against its plain version on the card. The s32 sums are exact and
@@ -347,6 +351,61 @@ def test_cuda_int8_kernel_matches_plain(shape, mid, o, down, bands):
     assert torch.isfinite(out).all()
     share, err = _int8_mismatch(out, ref)
     assert share == 0.0, (share, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,mid", [
+    ((3, 64, 64, 256), 64),          # resident
+    ((4, 32, 32, 512), 128),         # streamed
+])
+def test_cuda_int8_kernel_back_to_back_launches_agree(shape, mid):
+    """Two launches of K3 on one stream, the second while the first may
+    still run: bit-equal."""
+    dev = _cuda_or_skip()
+    x, ws, scales = _int8_inputs(15, shape, mid, shape[-1], False, dev)
+    operands = q8.kernel_operands(*ws[:6], *scales)
+    first = q8.launch(x, operands)
+    second = q8.launch(x, operands)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_cuda_int8_kernel_is_s8_wgmma_fed_by_tma():
+    """The SASS of K3 (every mid, both forms) has integer tensor-core
+    products through wgmma (IGMMA) and TMA loads (UTMALDG), and no
+    mma.sync (IMMA): the tile kernel it replaced is gone."""
+    _cuda_or_skip()
+    import shutil
+    import subprocess
+
+    from dir_tpu_torch.ops import cuda_build
+    q8.build()
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [cuobjdump, "--dump-sass", cuda_build.library_path(q8.NAME)],
+        capture_output=True, text=True, check=True).stdout
+    functions = [f for f in sass.split("Function : ")[1:]
+                 if "fused_bottleneck_int8_kernel" in f.splitlines()[0]]
+    assert len(functions) == 6       # mid 32, 64, 128; resident, streamed
+    for f in functions:
+        assert "IGMMA" in f and "UTMALDG" in f, f.splitlines()[0]
+    assert "IMMA" not in sass.replace("IGMMA", "")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,mid,o,down", [
+    (256, 64, 256, False), (256, 64, 256, True), (512, 128, 512, False),
+    (512, 128, 512, True), (32, 32, 32, True), (160, 64, 160, False),
+    (128, 128, 128, False), (1024, 128, 1024, True), (64, 32, 96, True),
+])
+def test_cuda_int8_layout_is_the_kernels(c, mid, o, down):
+    """Python's image size, shared memory, form and stages are the
+    library's."""
+    _cuda_or_skip()
+    lay = q8.layout(c, mid, o, down)
+    assert q8.library_layout(q8._library(), c, mid, o, down) == (
+        lay.image_bytes, lay.smem, lay.resident, lay.stages)
 
 
 @pytest.mark.gpu

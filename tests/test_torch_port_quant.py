@@ -543,3 +543,54 @@ def test_k3_guard_keeps_other_blocks_unfused():
             before = _k3_counts()
             blk(x)
         assert _k3_counts()[1] - before[1] == fused, (kw, shape)
+
+
+def test_k3_operands_are_kept_until_a_source_changes():
+    """``Bottleneck.k3_operands`` on CPU tensors: made once and kept; made
+    anew after an in-place change of a BN statistic, a conv weight or a
+    recalibrated scale, and of the projection's weight; always equal to a
+    fresh ``kernel_operands``; refused while calibrating."""
+    torch.manual_seed(0)
+    blk = tresnet.Bottleneck(128, 32, 1, True, quant_eval=True,
+                             quant_static=True, quant_fused=True).eval()
+    x = torch.randn(1, 128, 8, 8)
+    with torch.no_grad():
+        _calibrate(blk, x)
+    calls = []
+    real = tresnet.kernel_operands
+    try:
+        tresnet.kernel_operands = (
+            lambda *a, **k: calls.append(1) or real(*a, **k))
+
+        def fresh():
+            w = blk.folded_weights()
+            scales = [tquant.scale_from_amax(getattr(blk.quant_stats, n))
+                      for n in ("conv1_in", "conv2_in", "conv3_in")]
+            return q8.kernel_operands(*w[:6], *scales, *w[6:])
+
+        def same(a, b):
+            return all(torch.equal(s, t) if isinstance(s, torch.Tensor)
+                       else s == t for s, t in zip(a, b))
+
+        first = blk.k3_operands()
+        assert blk.k3_operands() is first and len(calls) == 1
+        assert same(first, fresh())
+        changes = [
+            lambda: blk.bn2.running_var.mul_(1.5),
+            lambda: blk.conv1.weight.mul_(-1.0),
+            lambda: _calibrate(blk, x * 3),          # a wider scale
+            lambda: blk.downsample[0].weight.add_(0.25),
+        ]
+        with torch.no_grad():
+            for n, change in enumerate(changes, start=2):
+                before = blk.k3_operands()
+                change()
+                now = blk.k3_operands()
+                assert len(calls) == n and not same(now, before)
+                assert same(now, fresh())
+                assert blk.k3_operands() is now and len(calls) == n
+        with torch.no_grad(), tquant.calibrating(blk):
+            with pytest.raises(RuntimeError, match="calibrating"):
+                blk.k3_operands()
+    finally:
+        tresnet.kernel_operands = real
