@@ -24,8 +24,20 @@ from dir_tpu_torch.ops.quant import (ActAmax, module_act_scale,
                                      module_quant_conv, quant_conv)
 
 
+def kernel_takes(x: torch.Tensor, dtype) -> bool:
+    """Whether the fused kernels (K1, K2, K3) take a block's activations of
+    ``dtype`` on ``x``'s device. On the card they take bf16 only; on the CPU
+    their wrappers run the plain versions, which take any dtype, as the JAX
+    package's kernels do."""
+    return x.device.type != "cuda" or dtype == torch.bfloat16
+
+
 class Bottleneck(nn.Module):
     expansion = 4
+    # Runs of blocks that a fused guard took by shape but whose activations
+    # the kernels do not take (:func:`kernel_takes`): they ran the block's
+    # unfused computation instead (fp32 on the card).
+    fp32_unfused_runs = 0
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, dtype=torch.float32,
@@ -70,13 +82,17 @@ class Bottleneck(nn.Module):
         # The guard of the JAX package: not training, stride 1, >= 128
         # input channels, and >= 4096 spatial positions (layer1_1, layer1_2)
         # or, with fused_l2_bands, >= 1024 (layer2_1..3, through bands=N).
+        # On the card the kernels take bf16 activations only; a block of
+        # another dtype runs unfused (kernel_takes).
         spatial = x.shape[2] * x.shape[3]
         if (self.fused_eval and not self.training and self.stride == 1
                 and x.shape[1] >= 128
                 and (spatial >= 4096
                      or (spatial >= 1024 and self.fused_l2_bands))):
-            return self._fused_infer(
-                x, bands=0 if spatial >= 4096 else self.fused_l2_bands)
+            if kernel_takes(x, self.dtype):
+                return self._fused_infer(
+                    x, bands=0 if spatial >= 4096 else self.fused_l2_bands)
+            Bottleneck.fp32_unfused_runs += 1
         if self.quant_eval and not self.training:
             return self._quant_infer(x)
         dt = self.dtype
@@ -177,12 +193,16 @@ class Bottleneck(nn.Module):
         # unfused route records the maxes), stride 1, >= 128 input channels;
         # layer1 at >= 4096 positions, layer2 through quant_fused_l2_bands.
         # On the card it launches on the block's kept operands; on the CPU
-        # the wrapper runs the plain version.
+        # the wrapper runs the plain version. A block whose activations the
+        # kernel does not take (kernel_takes) runs the unfused int8 route.
         spatial = x.shape[2] * x.shape[3]
-        if (self.quant_fused and self.quant_static and self.stride == 1
-                and x.shape[1] >= 128 and not self.quant_stats.calibrating
-                and (spatial >= 4096
-                     or (spatial >= 1024 and self.quant_fused_l2_bands))):
+        fused = (self.quant_fused and self.quant_static and self.stride == 1
+                 and x.shape[1] >= 128 and not self.quant_stats.calibrating
+                 and (spatial >= 4096
+                      or (spatial >= 1024 and self.quant_fused_l2_bands)))
+        if fused and not kernel_takes(xn, dt):
+            Bottleneck.fp32_unfused_runs += 1
+        elif fused:
             if xn.device.type == "cuda":
                 return launch(xn.to(dt), self.k3_operands()).permute(
                     0, 3, 1, 2)
