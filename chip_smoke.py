@@ -32,7 +32,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      them at batch 64, compare each final stage with the port's fp32 forward
      on the card (also through the port's batch_metrics), and time the
      requests of all three configurations;
-  5. print the ``kernels`` line, then the one-line result.
+  5. train the full-width flagship on the card: configuration T (bf16
+     trunk, B's decoder flags, so K5 runs on each step's forward; batch 64,
+     bench.py:bench_train's seeded batch), a few AdamW steps on the
+     repeated batch with ms per step, peak memory and K5's launches per step
+     (set to 0 just before, read just after), a finite and falling loss and
+     moved parameters; two steps of the default decoder (the factored splat
+     conv, no kernel); and K5's training route against the plain splat at
+     fp32 (loss and every parameter's gradient);
+  6. serve an fp32 trunk under the fused flags (the bf16 kernels' and C's)
+     at cut depth: the kernels take bf16 only, so the guards route the
+     blocks unfused;
+  7. print the ``kernels`` line, then the one-line result.
 """
 
 import dataclasses
@@ -98,9 +109,37 @@ K4_MID, K4_OUT = 64, 256           # layer1_0
 K5_SHAPES = ((256, 32, 64, 2.0), (256, 16, 64, 1.0))
 KERNELS = ("K1", "K2", "K3", "K4", "K5")
 CONFIGS = "ABC"
-# launches per request of (K1, K2, K3, K4, K5) in the three configurations;
-# no model calls K4, in the JAX package or here
-EXPECTED = {"A": (2, 0, 0, 0, 0), "B": (2, 3, 0, 0, 4), "C": (0, 0, 5, 0, 0)}
+# launches per request of (K1, K2, K3, K4, K5) in the three configurations,
+# and per optimizer step in configuration T (training: the fused
+# bottlenecks are inference-only); no model calls K4, in the JAX package or
+# here
+EXPECTED = {"A": (2, 0, 0, 0, 0), "B": (2, 3, 0, 0, 4), "C": (0, 0, 5, 0, 0),
+            "T": (0, 0, 0, 0, 4)}
+# Configuration T: bench.py:bench_train's batch; warm-up and timed steps on
+# the repeated batch; steps of the default decoder
+TRAIN_BATCH = 64
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+DEFAULT_DECODER_STEPS = 2
+# The loss on the repeated batch after T's steps over the first step's: at
+# most this (measured 0.843 on the card, seed 0).
+TRAIN_LOSS_RATIO = 0.92
+# K5's training route against the plain splat: fp32, TF32 off, this batch.
+# Both backwards are the plain version's; the forwards differ only at the
+# (pixel, bone) pairs near the mask's threshold and by an fp32 ulp, and
+# cuDNN's and the scatters' atomics sum in another order in every run.
+# Measured (seed 0): the loss equal, the worst gradient 3.4e-5 of the larger
+# of its max |value| and GRAD_FLOOR of the largest gradient of all, where
+# the plain route against itself gave 3.3e-5; 2 of 819,200 (pixel, bone)
+# pairs within 1e-4 px of the threshold. Bounds: the loss to
+# K5_TRAIN_LOSS_RTOL relative, every gradient to K5_TRAIN_GRAD_RTOL in that
+# measure, about ten times the spread.
+K5_TRAIN_BATCH = 16
+K5_TRAIN_LOSS_RTOL = 1e-6
+K5_TRAIN_GRAD_RTOL = 3e-4
+GRAD_FLOOR = 1e-4
+# The fp32 trunk under the fused flags against the same model without them:
+# the same fp32 computation, up to cuDNN's choice of algorithm.
+F1_RTOL = 1e-5
 
 
 def say(msg: str) -> None:
@@ -743,6 +782,254 @@ def serve_phase(mods):
     return launches, served_err, worst, latency, metrics
 
 
+def batch_loss(model, batch, mano_l, mano_r) -> float:
+    """The total train-mode loss of ``model`` on ``batch``, no gradient."""
+    from dir_tpu_torch.models.losses import dir_losses, total_loss
+
+    with torch.no_grad():
+        out = model(batch["img"], mano_l, mano_r)
+        return float(total_loss(dir_losses(
+            out, batch, model.cfg, mano_l.faces, mano_r.faces,
+            fused_stages=True)))
+
+
+def train_run(mods, name, model, mano_l, mano_r, batch, steps: int):
+    """``steps`` AdamW steps of ``model`` on the repeated ``batch`` through
+    the port's train step, the kernels' counts set to 0 just before and read
+    just after. Returns per step the host time around the step and a
+    synchronise (ms), the total loss and the launches, the total launches
+    and the peak memory; checks finite losses and moved, finite
+    parameters."""
+    from dir_tpu_torch.config import TrainConfig
+    from dir_tpu_torch.models.losses import total_loss
+    from dir_tpu_torch.train.state import create_train_state, make_optimizer
+    from dir_tpu_torch.train.steps import make_train_step
+
+    init = {k: p.detach().clone() for k, p in model.named_parameters()}
+    opt = make_optimizer(model, TrainConfig(), steps_per_epoch=1000)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, model.cfg, mano_l, mano_r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mods)
+    times, losses, per_step = [], [], []
+    for _ in range(steps):
+        before = kernel_counts(mods)
+        t = time.perf_counter()
+        state, loss_dict = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        per_step.append(tuple(a - b for a, b in zip(kernel_counts(mods),
+                                                    before)))
+        losses.append(float(total_loss(loss_dict)))
+    launches = kernel_counts(mods)
+    peak = torch.cuda.max_memory_allocated()
+    if state.step != steps or not all(np.isfinite(losses)):
+        raise RuntimeError(f"{name}: steps {state.step}, losses {losses}")
+    moved = sum(not torch.equal(p, init[k])
+                for k, p in model.named_parameters())
+    if moved < 0.9 * len(init) or not all(
+            torch.isfinite(p).all() for p in model.parameters()):
+        raise RuntimeError(f"{name}: {moved} of {len(init)} parameters "
+                           "moved, or a parameter is not finite")
+    say(f"train {name}: batch {batch['img'].shape[0]}, {steps} steps, "
+        f"ms per step {[round(t, 3) for t in times]}, losses "
+        f"{[round(v, 6) for v in losses]}, launches per step of {KERNELS} "
+        f"{per_step}, peak memory {peak / 2**30:.3f} GiB, {moved} of "
+        f"{len(init)} parameters moved")
+    return times, losses, per_step, launches, peak
+
+
+def k5_training_check(mods, state_dict, mano_l, mano_r) -> dict:
+    """K5's training route against the plain splat: the fp32 flagship with
+    B's decoder flags in train mode, one state_dict and one batch, once with
+    ``use_pallas_splat`` (K5 forward, plain backward) and twice without (the
+    run-to-run spread of the plain route). Compares the loss and every
+    parameter's gradient; counts the (pixel, bone) pairs K5 received near
+    the threshold."""
+    from dir_tpu_torch.config import ModelConfig
+    from dir_tpu_torch.models import dir as dir_module
+    from dir_tpu_torch.models.dir import DIR
+    from dir_tpu_torch.models.losses import dir_losses, total_loss
+    from dir_tpu_torch.profile_serve import train_batch
+
+    fb, q8, st, bs = mods
+    batch = train_batch(K5_TRAIN_BATCH, seed=1)
+    splats = []
+
+    def recording_splat(uv, feat, size, distance):
+        splats.append((uv.detach(), size, distance))
+        return bs.bone_splat(uv, feat, size, distance)
+
+    runs = {}
+    for name, pallas in (("K5", True), ("plain", False),
+                         ("plain again", False)):
+        model = DIR(ModelConfig(dtype="float32", fused_splat_conv=False,
+                                use_pallas_splat=pallas)).cuda()
+        model.load_state_dict(state_dict, strict=True)
+        model.train()
+        before = bs.bone_splat.launches
+        dir_module.bone_splat = recording_splat
+        try:
+            out = model(batch["img"], mano_l, mano_r)
+        finally:
+            dir_module.bone_splat = bs.bone_splat
+        loss = total_loss(dir_losses(out, batch, model.cfg, mano_l.faces,
+                                     mano_r.faces, fused_stages=True))
+        loss.backward()
+        torch.cuda.synchronize()
+        if bs.bone_splat.launches - before != (4 if pallas else 0):
+            raise RuntimeError(f"K5 training check ({name}): "
+                               f"{bs.bone_splat.launches - before} launches")
+        runs[name] = (loss.item(), {k: p.grad for k, p in
+                                    model.named_parameters()
+                                    if p.grad is not None})
+        del model, out, loss
+
+    def diff(a, b):
+        """Run ``a`` against run ``b``: the loss's relative error and the
+        worst gradient error, each tensor's over the larger of its own max
+        |value| and GRAD_FLOOR of the largest of all (a conv bias feeding a
+        train-mode BN has a gradient that is 0 in exact arithmetic: in fp32
+        it is rounding noise)."""
+        top = max(float(g.abs().max()) for g in b[1].values())
+        worst = (0.0, None)
+        for k, g in b[1].items():
+            scale = max(float(g.abs().max()), GRAD_FLOOR * top)
+            err = float((a[1][k] - g).abs().max()) / scale
+            worst = max(worst, (err, k), key=lambda t: t[0])
+        return abs(a[0] - b[0]) / abs(b[0]), worst
+
+    k5 = diff(runs["K5"], runs["plain"])
+    spread = diff(runs["plain again"], runs["plain"])
+    near = [int(bs.threshold_pairs(uv, size, d).sum())
+            for uv, size, d in splats]
+    pairs = sum(uv.shape[0] * size * size * 20 for uv, size, _ in splats)
+    say(f"K5 in training (fp32, batch {K5_TRAIN_BATCH}, full width): loss "
+        f"{runs['plain'][0]:.6f}, K5 vs plain loss rel err {k5[0]:.3g}, worst "
+        f"gradient err {k5[1][0]:.3g} ({k5[1][1]}) over "
+        f"{len(runs['plain'][1])} tensors; plain vs plain again: loss "
+        f"{spread[0]:.3g}, gradient "
+        f"{spread[1][0]:.3g} ({spread[1][1]}); (pixel, bone) pairs within "
+        f"{bs.THRESHOLD_MARGIN_PX} px of the threshold in K5's inputs: "
+        f"{sum(near)} of {pairs}")
+    if not (k5[0] <= K5_TRAIN_LOSS_RTOL and k5[1][0] <= K5_TRAIN_GRAD_RTOL):
+        raise RuntimeError("K5's training route disagrees with the plain "
+                           "splat")
+    return {"loss_rel_err": k5[0], "grad_rel_err": k5[1][0],
+            "grad_rel_err_at": k5[1][1], "spread_loss_rel_err": spread[0],
+            "spread_grad_rel_err": spread[1][0], "threshold_pairs": sum(near),
+            "pairs": pairs}
+
+
+def train_phase(mods):
+    """Configuration T and the default decoder, trained on the card; K5's
+    training route against the plain splat."""
+    from dir_tpu_torch.models.dir import DIR
+    from dir_tpu_torch.profile_serve import train_batch
+    from dir_tpu_torch.serve import CONFIG_B, build_flagship, condition_random_
+
+    model, cfg, mano_l, mano_r = build_flagship(
+        device="cuda", dtype="bfloat16", seed=0, **CONFIG_B)
+    condition_random_(model, mano_l, mano_r, seed=0)
+    state_dict = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = train_batch(TRAIN_BATCH)
+    times, losses, per_step, launches, peak = train_run(
+        mods, "T", model, mano_l, mano_r, batch, TRAIN_WARMUP + TRAIN_STEPS)
+    for n in per_step:
+        if n != EXPECTED["T"]:
+            raise RuntimeError(f"configuration T: {KERNELS} ran {n} times a "
+                               f"step, expected {EXPECTED['T']}")
+    final = batch_loss(model, batch, mano_l, mano_r)
+    say(f"train T: loss on the repeated batch after the last step {final:.6f}"
+        f", first step's {losses[0]:.6f} (ratio {final / losses[0]:.4f})")
+    if not final <= TRAIN_LOSS_RATIO * losses[0]:
+        raise RuntimeError("configuration T: the loss did not fall")
+    timed = sorted(times[TRAIN_WARMUP:])
+    result = {"T": {
+        "batch": TRAIN_BATCH, "ms_per_step": timed[len(timed) // 2],
+        "ms_per_step_min": timed[0], "ms_per_step_max": timed[-1],
+        "peak_memory_bytes": peak, "losses": losses, "loss_after": final,
+        "k5_launches_per_step": per_step[0][4]}}
+    del model, batch
+
+    # the default decoder (factored splat conv) on the same weights
+    model = DIR(dataclasses.replace(cfg, fused_splat_conv=True,
+                                    use_pallas_splat=False)).cuda()
+    model.load_state_dict(state_dict, strict=True)
+    batch = train_batch(TRAIN_BATCH)
+    times, losses, per_step, _, peak = train_run(
+        mods, "default decoder", model, mano_l, mano_r, batch,
+        DEFAULT_DECODER_STEPS)
+    if any(any(n) for n in per_step):
+        raise RuntimeError(f"the default decoder launched {per_step}")
+    result["default_decoder"] = {
+        "batch": TRAIN_BATCH, "ms_per_step": times, "peak_memory_bytes": peak,
+        "losses": losses}
+    del model, batch
+    torch.cuda.empty_cache()
+    result["k5_training"] = k5_training_check(mods, state_dict, mano_l,
+                                              mano_r)
+    return launches, result
+
+
+def f1_phase(mods):
+    """An fp32 trunk under the fused flags serves on the card: the guards
+    send the blocks the kernels would take (bf16 only) to the unfused fp32
+    block (``fused_bottleneck_eval=True, fused_l2_bands=4``) and to the
+    unfused int8 route (C's flags), and the model agrees with the same
+    weights without the fused flags."""
+    from dir_tpu_torch import weights
+    from dir_tpu_torch.config import ModelConfig
+    from dir_tpu_torch.models.dir import DIR
+    from dir_tpu_torch.models.resnet import Bottleneck
+    from dir_tpu_torch.serve import (CONFIG_C, calibrate_static_scales,
+                                     flagship_mano, make_infer, random_init_)
+
+    layers = (3, 1, 1, 1)
+    mano_l, mano_r = (m.to("cuda") for m in flagship_mano())
+    img = np.random.RandomState(1).randn(2, 256, 256, 3).astype(np.float32)
+    errs = {}
+    for key, name, flags in (
+            ("bf16_fused", "the bf16 kernels'",
+             dict(fused_bottleneck_eval=True, fused_l2_bands=4)),
+            ("C", "C's", CONFIG_C)):
+        model = random_init_(DIR(ModelConfig(backbone_layers=layers,
+                                             **flags)), seed=0).cuda().eval()
+        plain = DIR(ModelConfig(backbone_layers=layers, **dict(
+            flags, fused_bottleneck_eval=False, quant_fused=False))).cuda()
+        plain.load_state_dict(model.state_dict(), strict=True)
+        if flags.get("quant_static"):
+            calibrate_static_scales(model, img, mano_l, mano_r)
+            weights.load_amax(plain, weights.quant_stats_to_amax(
+                weights.amax_to_quant_stats(model, layers), layers))
+        reset_counts(mods)
+        before = Bottleneck.fp32_unfused_runs
+        out = make_infer(model, mano_l, mano_r)(img)
+        torch.cuda.synchronize()
+        routed = Bottleneck.fp32_unfused_runs - before
+        if any(kernel_counts(mods)) or routed != 2:
+            raise RuntimeError(f"fp32 with {name} flags: launches "
+                               f"{kernel_counts(mods)}, {routed} blocks "
+                               "routed unfused (expected 2)")
+        check_outputs(out, 2)
+        ref = make_infer(plain.eval(), mano_l, mano_r)(img)
+        pairs = [(so[k], sr[k]) for so, sr in zip(out["stages"],
+                                                  ref["stages"]) for k in sr]
+        pairs += [(out[k], ref[k]) for k in ("seg", "dense")]
+        err = max(float((a - b).abs().max()) / float(b.abs().max())
+                  for a, b in pairs)
+        say(f"fp32 trunk with {name} fused flags, (3,1,1,1): served, "
+            f"{routed} blocks routed unfused, no kernel launched; max err "
+            f"against the model without the fused flags {err:.3g} of each "
+            "output's max")
+        if err > F1_RTOL:
+            raise RuntimeError(f"fp32 with {name} flags disagrees")
+        errs[key] = err
+        del model, plain
+    return errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only "
@@ -787,25 +1074,29 @@ def main() -> int:
     k4 = stem_phase(st)
     k5 = splat_phase(bs)
     launches, served_err, worst_mm, latency, metrics = serve_phase(mods)
+    launches["T"], train = train_phase(mods)
+    f1 = f1_phase(mods)
 
     # times and bound at the path's shape (the identity form for K1 and K2,
     # the layer1 shape for K3, the larger stage for K5); the error is the
     # worst of that check and the served inputs' check; launches are the
-    # main path's, over A's, B's and C's runs. K4 is on no path: its entry
-    # holds its standalone check and 0 launches.
+    # main path's, over A's, B's and C's requests and T's train steps. K4 is
+    # on no path: its entry holds its standalone check and 0 launches.
+    runs = list(CONFIGS) + ["T"]
+
     def entry(key, name, source, replaces, at_shape, **more):
         index = KERNELS.index(key)
-        if (any(EXPECTED[n][index] for n in CONFIGS)
-                and not all(launches[n][index] for n in CONFIGS
+        if (any(EXPECTED[n][index] for n in runs)
+                and not all(launches[n][index] for n in runs
                             if EXPECTED[n][index])):
             raise RuntimeError(f"{key} is on the main path and was not "
                                "launched there")
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(launches[n][index] for n in CONFIGS),
+            "launches": sum(launches[n][index] for n in runs),
             "launches_by_configuration": {n: launches[n][index]
-                                          for n in CONFIGS},
+                                          for n in runs},
             "max_abs_err": max(at_shape["max_abs_err"], served_err[key]),
             "ms": at_shape["ms"], "plain_ms": at_shape["plain_ms"],
             "bound_ms": at_shape["bound_ms"],
@@ -836,6 +1127,8 @@ def main() -> int:
     ]}
     say(f"serve: worst final-stage err {worst_mm} mm; latency ms {latency}; "
         f"vs fp32 through batch_metrics {metrics}")
+    print(json.dumps({"train": train, "fp32_fused_flags_rel_err": f1}),
+          flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """Model configuration of the PyTorch port.
 
-A copy of ``dir_tpu.config.ModelConfig`` (same fields, same defaults), so
-that the port never imports the JAX package. ``DataConfig`` and
-``TrainConfig`` come with the data and training slices.
+Copies of ``dir_tpu.config.ModelConfig`` and ``TrainConfig`` (same fields,
+same defaults), so that the port never imports the JAX package.
+``DataConfig`` and ``Config`` come with the data slice.
 """
 
 from __future__ import annotations
@@ -92,3 +92,37 @@ class ModelConfig:
     seg_class_weights: Tuple[float, float, float] = (0.1, 0.45, 0.45)
     # Scale normalization constant for xyz-space embeddings.
     coord_scale: float = 0.15
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Trainer settings (reference: config.py:13-31, train.py:223-243)."""
+
+    batch_size: int = 64
+    total_epochs: int = 50
+    lr: float = 5e-4
+    lr_scheduler: str = "cosine"  # "cosine" | "step"
+    step_milestones: Tuple[int, ...] = (30,)
+    step_gamma: float = 0.1
+    weight_decay: float = 0.01  # torch AdamW default
+    seed: int = 25
+    print_every: int = 100
+    draw_every: int = 100  # skeleton-overlay dumps (0 disables)
+    eval_every_epochs: int = 1
+    # Optimizer steps per call of the train step (train/steps.py: unroll),
+    # on stacked batches; the same math as one step per call.
+    steps_per_call: int = 1
+    # Micro-batches whose gradients are summed in fp32 and averaged into one
+    # optimizer step (train/steps.py: grad_accum); batch_size is the
+    # micro-batch size. Mutually exclusive with steps_per_call > 1.
+    grad_accum: int = 1
+    # In-loop eval metric: "benchmark" (the offline eval metric) or
+    # "online" (the reference Trainer's own).
+    inloop_metric: str = "benchmark"
+    output_dir: str = "./output/dir_tpu"
+    checkpoint: str = ""
+    continue_train: bool = False
+    # Data-parallel size; 0 means all local devices.
+    mesh_data_axis: int = 0
+    # Compute dtype for the network (MANO + losses stay f32 for parity).
+    compute_dtype: str = "float32"

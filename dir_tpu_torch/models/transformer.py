@@ -4,7 +4,8 @@
 Kept from the reference: only blocks 1..depth-1 execute (block 0 is
 never built here), one shared ``spatial_norm`` (eps 1e-6) runs after
 every block, the block norms use eps 1e-6 and the head norm 1e-5, and
-GELU is exact. LayerNorms compute in fp32 and return the trunk dtype.
+GELU is exact. LayerNorms compute in at least fp32 and return the trunk
+dtype.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ from dir_tpu_torch.models.layers import linear
 
 
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype) -> torch.Tensor:
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
-                        ln.eps).to(dtype)
+    ct = torch.promote_types(x.dtype, torch.float32)
+    return F.layer_norm(x.to(ct), ln.normalized_shape, ln.weight.to(ct),
+                        ln.bias.to(ct), ln.eps).to(dtype)
 
 
 class Mlp(nn.Module):

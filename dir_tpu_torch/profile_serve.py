@@ -1,4 +1,4 @@
-"""Where one serving request's time goes on the card.
+"""Where one serving request's, or one train step's, time goes on the card.
 
 Builds the bf16 flagship (seeded random weights, fused bottleneck on) in
 configuration A (the default: factored splat conv), B (``--config B``:
@@ -9,10 +9,12 @@ one request at each of batch 1, 8 and 64 with
 ``torch.profiler`` and prints, per batch, one JSON line: the request's
 wall time, the device's busy time and idle share over it, the number of
 kernel launches, and the 15 kernels that take the most device time; the
-card's name and power limit come first. Run from the repository root on a
-machine with a CUDA device:
+card's name and power limit come first. ``--config T`` traces one AdamW
+step of configuration T instead (B's decoder flags, so K5 runs in the
+forward; bench.py:bench_train's seeded batch of 64) and adds the step's
+peak memory. Run from the repository root on a machine with a CUDA device:
 
-    python -m dir_tpu_torch.profile_serve [--config {A,B,C}]
+    python -m dir_tpu_torch.profile_serve [--config {A,B,C,T}]
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from dir_tpu_torch.serve import (CONFIG_B, CONFIG_C, build_flagship,
-                                 calibrate_static_scales, make_infer)
+                                 calibrate_static_scales, condition_random_,
+                                 make_infer)
 
 BATCHES = (1, 8, 64)
 TOP = 15
@@ -47,7 +50,49 @@ def _busy_us(events) -> float:
     return busy
 
 
-def profile_request(infer, img: np.ndarray) -> dict:
+def train_batch(b: int, seed: int = 0, device="cuda") -> dict:
+    """bench.py:bench_train's seeded synthetic batch, on ``device``."""
+    rng = np.random.RandomState(seed)
+    arrays = {
+        "img": rng.randn(b, 256, 256, 3).astype(np.float32),
+        "joint_2d_left": rng.randn(b, 21, 3).astype(np.float32),
+        "joint_2d_right": rng.randn(b, 21, 3).astype(np.float32),
+        "mesh_2d_left": rng.randn(b, 778, 3).astype(np.float32),
+        "mesh_2d_right": rng.randn(b, 778, 3).astype(np.float32),
+        "joint_3d_left": rng.randn(b, 21, 3).astype(np.float32) * 0.1,
+        "joint_3d_right": rng.randn(b, 21, 3).astype(np.float32) * 0.1,
+        "mesh_3d_left": rng.randn(b, 778, 3).astype(np.float32) * 0.1,
+        "mesh_3d_right": rng.randn(b, 778, 3).astype(np.float32) * 0.1,
+        "center_left": rng.randn(b, 1, 3).astype(np.float32) * 0.1,
+        "center_right": rng.randn(b, 1, 3).astype(np.float32) * 0.1,
+        "seg": rng.randint(0, 3, size=(b, 256, 256)).astype(np.int32),
+        "dense": rng.rand(b, 256, 256, 3).astype(np.float32),
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def profile_train_step(batch: int = 64) -> dict:
+    """One traced AdamW step of configuration T (weights conditioned as
+    chip_smoke.py's) after three warm-up steps on the same batch."""
+    from dir_tpu_torch.config import TrainConfig
+    from dir_tpu_torch.train.state import create_train_state, make_optimizer
+    from dir_tpu_torch.train.steps import make_train_step
+
+    model, cfg, mano_l, mano_r = build_flagship(device="cuda", seed=0,
+                                                **CONFIG_B)
+    condition_random_(model, mano_l, mano_r, seed=0)
+    opt = make_optimizer(model, TrainConfig(), steps_per_epoch=1000)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, cfg, mano_l, mano_r)
+    data = train_batch(batch)
+    torch.cuda.reset_peak_memory_stats()
+    out = profile_request(lambda img: step(state, dict(data, img=img)),
+                          data["img"])
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def profile_request(infer, img) -> dict:
     for _ in range(3):
         infer(img)
     torch.cuda.synchronize()
@@ -75,19 +120,29 @@ def profile_request(infer, img: np.ndarray) -> dict:
     }
 
 
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--config", choices=("A", "B", "C"), default="A")
+    parser.add_argument("--config", choices=("A", "B", "C", "T"),
+                        default="A")
     args = parser.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.config == "T":
+        print(_card(), flush=True)
+        print(json.dumps({"config": "T", **profile_train_step()}), flush=True)
+        return
     model, _, mano_l, mano_r = build_flagship(
         device="cuda", seed=0,
         **{"A": {}, "B": CONFIG_B, "C": CONFIG_C}[args.config])
     infer = make_infer(model, mano_l, mano_r)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    print(_card(), flush=True)
     rng = np.random.RandomState(0)
     if args.config == "C":
         calibrate_static_scales(

@@ -1,1 +1,2 @@
-"""Training-side code of the port (so far: the evaluation metrics)."""
+"""Training-side code of the port: losses live in ``models/losses.py``;
+here the train state, the steps, checkpoints and the evaluation metrics."""

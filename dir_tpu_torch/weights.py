@@ -7,6 +7,10 @@ transforms, so that ``DIR.load_state_dict(..., strict=True)`` takes the
 result. Leaves absent from the trees (Residual skip convs of same-width
 blocks) are skipped; STE block 0 is not in the table.
 
+The optimizer's moments cross the same way (:func:`jax_opt_state_to_torch`:
+``optax.adamw``'s mu and nu into ``torch.optim.AdamW``'s state), so a JAX
+train state continues in the port.
+
 State carried across as well: the JAX package's ``quant_stats`` collection
 (the calibrated activation maxes of int8 static serving) and the port's
 ``ActAmax`` buffers are turned into each other by the same kind of table
@@ -312,3 +316,57 @@ def amax_to_quant_stats(model: torch.nn.Module,
             node = node.setdefault(k, {})
         node[e.path[-1]] = np.float32(getattr(stats, name).item())
     return tree
+
+
+def _adam_state(opt_state):
+    """The ``ScaleByAdamState`` (count, mu, nu) inside an ``optax.adamw``
+    state: a NamedTuple chain, or the same as nested dicts or lists (as a
+    checkpoint restores it)."""
+    if isinstance(opt_state, dict):
+        if {"count", "mu", "nu"} <= set(opt_state):
+            return opt_state["count"], opt_state["mu"], opt_state["nu"]
+        items = opt_state.values()
+    elif all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return opt_state.count, opt_state.mu, opt_state.nu
+    elif isinstance(opt_state, (list, tuple)):
+        items = opt_state
+    else:
+        items = ()
+    for item in items:
+        found = _adam_state(item)
+        if found is not None:
+            return found
+    return None
+
+
+def jax_opt_state_to_torch(opt_state_numpy, model: torch.nn.Module,
+                           optimizer: torch.optim.Optimizer) -> int:
+    """Carry ``optax.adamw``'s moments into ``torch.optim.AdamW``'s state.
+
+    ``opt_state_numpy``: the JAX train state's ``opt_state`` with numpy
+    leaves. Its ``ScaleByAdamState(count, mu, nu)`` becomes, for every
+    parameter of ``model`` that ``optimizer`` holds, ``exp_avg`` (mu),
+    ``exp_avg_sq`` (nu) and ``step`` (count), in each parameter's dtype and
+    on its device. mu and nu are linear in the gradients, so they take the
+    parameters' layout changes of :func:`jax_to_state_dict`. Returns the
+    count: the optimizer steps taken, the port's ``TrainState.step``."""
+    found = _adam_state(opt_state_numpy)
+    if found is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the state")
+    count, mu, nu = found
+    layers = model.cfg.backbone_layers
+    exp_avg = jax_to_state_dict(mu, {}, layers)
+    exp_avg_sq = jax_to_state_dict(nu, {}, layers)
+    held = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    step = int(np.asarray(count))
+    for name, p in model.named_parameters():
+        if id(p) not in held:
+            continue
+        if name not in exp_avg:
+            raise KeyError(f"the JAX state has no moments for {name!r}")
+        optimizer.state[p] = {
+            "step": torch.tensor(float(step), dtype=torch.float32),
+            "exp_avg": exp_avg[name].to(p.device, p.dtype),
+            "exp_avg_sq": exp_avg_sq[name].to(p.device, p.dtype),
+        }
+    return step

@@ -1,8 +1,10 @@
 """Tests of the port that need the card: the CUDA kernels K1, K2 (the fused
 bottleneck, weights resident and streamed), K3 (the fused int8 bottleneck), K4
 (stem + layer1_0) and K5 (the bone splat) against their plain versions, the
-unfused int8 conv's integers against the CPU's, and the bf16 and int8
-forwards with the kernels against the fp32 forward.
+unfused int8 conv's integers against the CPU's, the bf16 and int8
+forwards with the kernels against the fp32 forward, K5's gradient, a bf16
+train step, and an fp32 trunk under the fused flags (served unfused: the
+kernels take bf16 only).
 
 They import nothing of JAX, so they run on a machine without it. Each
 decides inside the test whether a card is present and skips without
@@ -544,3 +546,146 @@ def test_flagship_config_c_matches_fp32_on_card():
                         - ref["stages"][-1][key]).abs().max()) * 1e3
         print(key, err_mm)
         assert err_mm < 40.0, (key, err_mm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size,distance", [(32, 2.0), (16, 1.0)])
+def test_cuda_bone_splat_gradient_matches_plain_bf16(size, distance):
+    """K5's autograd route on the card, bf16 features at the two refine
+    stages' sizes, against the plain version's own autograd: a loss linear
+    in the splat gives both backwards the same incoming gradient, and K5's
+    backward is the plain version."""
+    dev = _cuda_or_skip()
+    uv, feat = _splat_inputs(9, 4, 64, dev, torch.bfloat16)
+    w = torch.randn((4, size, size, 20 * 64),
+                    generator=torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    grads = []
+    before = bs.bone_splat.launches
+    for fn in (bs.bone_splat, bs.bone_splat_plain):
+        u = uv.clone().requires_grad_(True)
+        f = feat.clone().requires_grad_(True)
+        (fn(u, f, size, distance).float() * w).sum().backward()
+        grads.append((u.grad, f.grad))
+    assert bs.bone_splat.launches == before + 1
+    (gu, gf), (pu, pf) = grads
+    assert gf.dtype == torch.bfloat16 and gu.dtype == torch.float32
+    # the same backward on the same inputs; the feature gradient's
+    # scattered sums may add in another order: one bf16 ulp (2^-8) of the
+    # max for it, 1e-5 of the max for the fp32 joint gradient
+    assert float((gf.float() - pf.float()).abs().max()) <= (
+        2 ** -8 * float(pf.float().abs().max()))
+    assert float((gu - pu).abs().max()) <= 1e-5 * float(pu.abs().max())
+
+
+@pytest.mark.gpu
+def test_bf16_train_step_on_card_launches_k5():
+    """One bf16 train step of a cut-depth flagship with B's decoder flags on
+    the card: K5 four times (2 hands x 2 stages), no fused bottleneck; a
+    finite loss; the parameters moved."""
+    dev = _cuda_or_skip()
+    from dir_tpu_torch.config import ModelConfig, TrainConfig
+    from dir_tpu_torch.models.dir import DIR
+    from dir_tpu_torch.models.losses import total_loss
+    from dir_tpu_torch.profile_serve import train_batch
+    from dir_tpu_torch.serve import (CONFIG_B, condition_random_,
+                                     flagship_mano, random_init_)
+    from dir_tpu_torch.train.state import create_train_state, make_optimizer
+    from dir_tpu_torch.train.steps import make_train_step
+
+    ml, mr = (m.to(dev) for m in flagship_mano())
+    model = random_init_(DIR(ModelConfig(
+        backbone_layers=(1, 1, 1, 1), dtype="bfloat16", **CONFIG_B)),
+        seed=0).to(dev)
+    condition_random_(model, ml, mr, seed=0)
+    init = {k: v.clone() for k, v in model.named_parameters()}
+    opt = make_optimizer(model, TrainConfig(), 1000)
+    step = make_train_step(model, opt, model.cfg, ml, mr)
+    f = fb.fused_bottleneck_infer
+    before = (f.launches, f.streamed_launches, bs.bone_splat.launches)
+    state, loss_dict = step(create_train_state(model, opt),
+                            train_batch(2, device=dev))
+    torch.cuda.synchronize()
+    after = (f.launches, f.streamed_launches, bs.bone_splat.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (0, 0, 4)
+    assert state.step == 1
+    assert np.isfinite(float(total_loss(loss_dict)))
+    moved = [k for k, p in model.named_parameters()
+             if not torch.equal(p, init[k])]
+    assert len(moved) > 0.9 * len(init)
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+
+
+def _fp32_models(dev, **flags):
+    """A (3, 1, 1, 1) fp32 flagship with ``flags`` and the same weights
+    without the fused flags, both in eval mode on the card."""
+    from dir_tpu_torch.config import ModelConfig
+    from dir_tpu_torch.models.dir import DIR
+    from dir_tpu_torch.serve import random_init_
+
+    layers = (3, 1, 1, 1)
+    model = random_init_(DIR(ModelConfig(backbone_layers=layers, **flags)),
+                         seed=0).to(dev).eval()
+    plain_flags = dict(flags, fused_bottleneck_eval=False, quant_fused=False)
+    plain = DIR(ModelConfig(backbone_layers=layers, **plain_flags)).to(dev)
+    plain.load_state_dict(model.state_dict(), strict=True)
+    return model, plain.eval()
+
+
+def _assert_outputs_close(out, ref, rtol):
+    for so, sr in zip(out["stages"], ref["stages"]):
+        for key in sr:
+            scale = float(sr[key].abs().max())
+            assert float((so[key] - sr[key]).abs().max()) <= rtol * scale, key
+    for key in ("seg", "dense"):
+        scale = float(ref[key].abs().max())
+        assert float((out[key] - ref[key]).abs().max()) <= rtol * scale, key
+
+
+@pytest.mark.gpu
+def test_fp32_with_fused_flags_serves_on_card():
+    """An fp32 trunk with ``fused_bottleneck_eval=True, fused_l2_bands=4``:
+    the guard sends layer1_1 and layer1_2 to the unfused fp32 block (the
+    kernels take bf16 only) and the model serves as the one without the
+    flags does."""
+    dev = _cuda_or_skip()
+    from dir_tpu_torch.models.resnet import Bottleneck
+    from dir_tpu_torch.serve import flagship_mano, make_infer
+
+    model, plain = _fp32_models(dev, fused_bottleneck_eval=True,
+                                fused_l2_bands=4)
+    ml, mr = (m.to(dev) for m in flagship_mano())
+    img = np.random.RandomState(1).randn(2, 256, 256, 3).astype(np.float32)
+    f = fb.fused_bottleneck_infer
+    before = (f.launches, f.streamed_launches, Bottleneck.fp32_unfused_runs)
+    out = make_infer(model, ml, mr)(img)
+    after = (f.launches, f.streamed_launches, Bottleneck.fp32_unfused_runs)
+    assert tuple(a - b for a, b in zip(after, before)) == (0, 0, 2)
+    # the same fp32 computation: equal up to cuDNN's choice of algorithm
+    _assert_outputs_close(out, make_infer(plain, ml, mr)(img), 1e-5)
+
+
+@pytest.mark.gpu
+def test_fp32_with_config_c_serves_on_card():
+    """An fp32 trunk with the C flags: the fused int8 guard sends layer1_1
+    and layer1_2 to the unfused int8 route, and the model serves as the one
+    with ``quant_fused=False`` on the same calibrated scales does."""
+    dev = _cuda_or_skip()
+    from dir_tpu_torch import weights
+    from dir_tpu_torch.models.resnet import Bottleneck
+    from dir_tpu_torch.serve import (CONFIG_C, calibrate_static_scales,
+                                     flagship_mano, make_infer)
+
+    model, plain = _fp32_models(dev, **CONFIG_C)
+    ml, mr = (m.to(dev) for m in flagship_mano())
+    img = np.random.RandomState(1).randn(2, 256, 256, 3).astype(np.float32)
+    calibrate_static_scales(model, img, ml, mr)
+    layers = model.cfg.backbone_layers
+    weights.load_amax(plain, weights.quant_stats_to_amax(
+        weights.amax_to_quant_stats(model, layers), layers))
+    q = q8.fused_bottleneck_int8_infer
+    before = (q.launches, Bottleneck.fp32_unfused_runs)
+    out = make_infer(model, ml, mr)(img)
+    after = (q.launches, Bottleneck.fp32_unfused_runs)
+    assert tuple(a - b for a, b in zip(after, before)) == (0, 2)
+    _assert_outputs_close(out, make_infer(plain, ml, mr)(img), 1e-5)

@@ -4,6 +4,8 @@ through the JAX package's own torch-layout export."""
 
 from __future__ import annotations
 
+import contextlib
+
 import flax
 import jax
 import jax.numpy as jnp
@@ -47,3 +49,27 @@ def load_into(module: torch.nn.Module, variables, entries) -> None:
 def max_err(a, b) -> float:
     return float(np.max(np.abs(np.asarray(a, np.float64)
                                - np.asarray(b, np.float64))))
+
+
+@contextlib.contextmanager
+def x64(on: bool = True):
+    """JAX's 64-bit mode set to ``on`` for the block, restored afterwards."""
+    old = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", on)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", old)
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """PyTorch's intra-op threads set to ``n`` for the block, restored
+    afterwards. The test workers share the host's cores: a worker that
+    trains on every core spins its threads against the other workers'."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
