@@ -115,3 +115,20 @@ def test_checkpoint_round_trip_and_resume(reference):
     assert state.step == 2
     for k, v in ck.model_state_dict(full.model).items():
         assert torch.equal(model.state_dict()[k], v), k
+
+
+def test_eval_step_is_the_eval_forward(reference):
+    """make_eval_step runs the eval-mode forward of a train state's model
+    (or of the model itself) without recording gradients."""
+    batches, _, _, full, _ = reference
+    tl, tr = port_manos()
+    eval_step = tsteps.make_eval_step(full.model, tl, tr, device="cpu")
+    img = batches[0]["img"]
+    out = eval_step(full, img)
+    assert not full.model.training
+    with torch.inference_mode():
+        want = full.model(torch.from_numpy(img), tl, tr)
+    for so, sw in zip(out["stages"], want["stages"]):
+        for k in sw:
+            assert torch.equal(so[k], sw[k]), k
+    assert torch.equal(eval_step(full.model, img)["seg"], want["seg"])

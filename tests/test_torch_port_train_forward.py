@@ -1,14 +1,11 @@
-"""The port's train-mode forward and its gradient accumulation against
-dir_tpu's.
+"""The port's train-mode forward against dir_tpu's.
 
 On the shared set-up of ``torch_port_train_helpers`` (tiny backbone at
 64x64, batch 2): a train-mode forward's outputs and the BN running stats it
 leaves, against ``model.apply(..., train=True, mutable=["batch_stats"])``,
 at fp32, for both decoders: the factored splat conv (the default) and the
 materialized bone splat through K5's route (``use_pallas_splat``: Pallas in
-interpret mode on the JAX side, the plain version on the CPU here). Then
-``grad_accum=2`` against the port's own manual accumulation and against the
-JAX package's accumulating step at fp64.
+interpret mode on the JAX side, the plain version on the CPU here).
 """
 
 import os
@@ -22,20 +19,16 @@ import torch
 from dir_tpu.config import ModelConfig as JModelConfig
 from dir_tpu.models.dir import DIR as JDIR
 
-from dir_tpu_torch.config import TrainConfig
-from dir_tpu_torch.models.losses import dir_losses, total_loss
 from dir_tpu_torch.ops import bone_splat as bs
-from dir_tpu_torch.train import state as tstate
 from dir_tpu_torch.weights import jax_to_state_dict
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_port_model import _tpu_interpret_mode  # noqa: E402
 from torch_port_helpers import (max_err, numpy_tree,  # noqa: E402
-                                torch_threads, x64)
-from torch_port_train_helpers import (LAYERS, assert_state_close,  # noqa: E402
-                                      fp64_setup, jax_manos, jax_train,
+                                torch_threads)
+from torch_port_train_helpers import (LAYERS, jax_manos,  # noqa: E402
                                       jax_variables, make_batch, port_manos,
-                                      port_model, port_train)
+                                      port_model)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -109,53 +102,3 @@ def test_train_forward_and_bn_stats_match_jax(fp32_variables, decoder):
             (stats[k] - w).abs().max() / w.abs().max()))
     for kind, err in worst.items():
         assert err <= FORWARD_TOL[kind], (kind, err)
-
-
-def test_grad_accum_is_manual_accumulation(fp32_variables):
-    """grad_accum=2 on two stacked micro-batches: the gradients the port's
-    plain backward leaves for each micro-batch (BN statistics chained),
-    summed and halved, then one AdamW step; bit for bit, with the loss dict
-    the micro-batches' mean."""
-    variables, _ = fp32_variables
-    rng = np.random.RandomState(3)
-    micro = [make_batch(rng) for _ in range(2)]
-    stacked = {k: np.stack([m[k] for m in micro]) for k in micro[0]}
-    state, losses = port_train(port_model(variables), [stacked],
-                                     grad_accum=2)
-    assert state.step == 1
-
-    model = port_model(variables).train()
-    tl, tr = port_manos()
-    opt = tstate.make_optimizer(model, TrainConfig(), 1)
-    opt.zero_grad(set_to_none=True)
-    totals = []
-    for m in micro:
-        t = {k: torch.from_numpy(v) for k, v in m.items()}
-        loss = total_loss(dir_losses(model(t["img"], tl, tr), t, model.cfg,
-                                     tl.faces, tr.faces, fused_stages=True))
-        loss.backward()
-        totals.append(float(loss.detach()))
-    for p in model.parameters():
-        p.grad.div_(2)
-    opt.step()
-    got = state.model.state_dict()
-    for k, v in model.state_dict().items():
-        assert torch.equal(got[k], v), k
-    np.testing.assert_allclose(losses[0], np.mean(totals), rtol=1e-6)
-
-
-# Measured at fp64 with the edge scores at 1 (see fp64_setup): parameters to
-# 4.8e-8 lr (the edge scores, whose gradient is fp32-limited), BN statistics
-# to 6.2e-15 of their max; bounds as the trajectory's first step (STEP_TOL[0]
-# of test_torch_port_trajectory.py).
-def test_grad_accum_matches_jax():
-    jmodel, jvars, manos, batches = fp64_setup()
-    stacked = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
-    with x64():
-        states, jlosses = jax_train(jvars, [stacked], jmodel, manos,
-                                    steps_per_epoch=1, grad_accum=2)
-    state, losses = port_train(port_model(jvars, "float64"), [stacked],
-                                  grad_accum=2)
-    np.testing.assert_allclose(losses[0], jlosses[0], rtol=1e-12)
-    assert_state_close(state.model, states[0].params, states[0].batch_stats,
-                       5e-4, 1e-6, 1e-13)
