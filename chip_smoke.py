@@ -35,7 +35,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   5. train the full-width flagship on the card: configuration T (bf16
      trunk, B's decoder flags, so K5 runs on each step's forward; batch 64,
      bench.py:bench_train's seeded batch), a few AdamW steps on the
-     repeated batch with ms per step, peak memory and K5's launches per step
+     repeated batch with ms per step (host clock and CUDA events), peak
+     memory and K5's launches per step
      (set to 0 just before, read just after), a finite and falling loss and
      moved parameters; two steps of the default decoder (the factored splat
      conv, no kernel); and K5's training route against the plain splat at
@@ -797,9 +798,9 @@ def train_run(mods, name, model, mano_l, mano_r, batch, steps: int):
     """``steps`` AdamW steps of ``model`` on the repeated ``batch`` through
     the port's train step, the kernels' counts set to 0 just before and read
     just after. Returns per step the host time around the step and a
-    synchronise (ms), the total loss and the launches, the total launches
-    and the peak memory; checks finite losses and moved, finite
-    parameters."""
+    synchronise and the time between CUDA events recorded before and after
+    it (ms), the total loss and the launches, the total launches and the
+    peak memory; checks finite losses and moved, finite parameters."""
     from dir_tpu_torch.config import TrainConfig
     from dir_tpu_torch.models.losses import total_loss
     from dir_tpu_torch.train.state import create_train_state, make_optimizer
@@ -811,14 +812,19 @@ def train_run(mods, name, model, mano_l, mano_r, batch, steps: int):
     step = make_train_step(model, opt, model.cfg, mano_l, mano_r)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     reset_counts(mods)
-    times, losses, per_step = [], [], []
+    times, event_times, losses, per_step = [], [], [], []
     for _ in range(steps):
         before = kernel_counts(mods)
         t = time.perf_counter()
+        start.record()
         state, loss_dict = step(state, batch)
+        end.record()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
+        event_times.append(start.elapsed_time(end))
         per_step.append(tuple(a - b for a, b in zip(kernel_counts(mods),
                                                     before)))
         losses.append(float(total_loss(loss_dict)))
@@ -833,11 +839,12 @@ def train_run(mods, name, model, mano_l, mano_r, batch, steps: int):
         raise RuntimeError(f"{name}: {moved} of {len(init)} parameters "
                            "moved, or a parameter is not finite")
     say(f"train {name}: batch {batch['img'].shape[0]}, {steps} steps, "
-        f"ms per step {[round(t, 3) for t in times]}, losses "
+        f"ms per step {[round(t, 3) for t in times]} (CUDA events "
+        f"{[round(t, 3) for t in event_times]}), losses "
         f"{[round(v, 6) for v in losses]}, launches per step of {KERNELS} "
         f"{per_step}, peak memory {peak / 2**30:.3f} GiB, {moved} of "
         f"{len(init)} parameters moved")
-    return times, losses, per_step, launches, peak
+    return times, event_times, losses, per_step, launches, peak
 
 
 def k5_training_check(mods, state_dict, mano_l, mano_r) -> dict:
@@ -934,7 +941,7 @@ def train_phase(mods):
     condition_random_(model, mano_l, mano_r, seed=0)
     state_dict = {k: v.clone() for k, v in model.state_dict().items()}
     batch = train_batch(TRAIN_BATCH)
-    times, losses, per_step, launches, peak = train_run(
+    times, event_times, losses, per_step, launches, peak = train_run(
         mods, "T", model, mano_l, mano_r, batch, TRAIN_WARMUP + TRAIN_STEPS)
     for n in per_step:
         if n != EXPECTED["T"]:
@@ -946,9 +953,11 @@ def train_phase(mods):
     if not final <= TRAIN_LOSS_RATIO * losses[0]:
         raise RuntimeError("configuration T: the loss did not fall")
     timed = sorted(times[TRAIN_WARMUP:])
+    events = sorted(event_times[TRAIN_WARMUP:])
     result = {"T": {
         "batch": TRAIN_BATCH, "ms_per_step": timed[len(timed) // 2],
         "ms_per_step_min": timed[0], "ms_per_step_max": timed[-1],
+        "event_ms_per_step": events[len(events) // 2],
         "peak_memory_bytes": peak, "losses": losses, "loss_after": final,
         "k5_launches_per_step": per_step[0][4]}}
     del model, batch
@@ -958,13 +967,14 @@ def train_phase(mods):
                                     use_pallas_splat=False)).cuda()
     model.load_state_dict(state_dict, strict=True)
     batch = train_batch(TRAIN_BATCH)
-    times, losses, per_step, _, peak = train_run(
+    times, event_times, losses, per_step, _, peak = train_run(
         mods, "default decoder", model, mano_l, mano_r, batch,
         DEFAULT_DECODER_STEPS)
     if any(any(n) for n in per_step):
         raise RuntimeError(f"the default decoder launched {per_step}")
     result["default_decoder"] = {
-        "batch": TRAIN_BATCH, "ms_per_step": times, "peak_memory_bytes": peak,
+        "batch": TRAIN_BATCH, "ms_per_step": times,
+        "event_ms_per_step": event_times, "peak_memory_bytes": peak,
         "losses": losses}
     del model, batch
     torch.cuda.empty_cache()
