@@ -202,9 +202,10 @@ EncodeTiled encode_tiled() {
 }
 
 // A map over NHWC bf16 x with a (64 channels, bw, bh, 1) box, 128-byte
-// swizzle and zero fill outside the tensor. Host work only.
+// swizzle and zero fill outside the tensor (NaN fill with nan_fill). Host
+// work only.
 bool encode_nhwc(CUtensorMap* map, const void* x, int B, int H, int W, int C, int bw,
-                 int bh) {
+                 int bh, bool nan_fill = false) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
@@ -215,7 +216,8 @@ bool encode_nhwc(CUtensorMap* map, const void* x, int B, int H, int W, int C, in
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+            nan_fill ? CU_TENSOR_MAP_FLOAT_OOB_FILL_NAN_REQUEST_ZERO_FMA
+                     : CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 int sm_count() {

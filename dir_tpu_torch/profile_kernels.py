@@ -1,11 +1,12 @@
 """Per-phase clock() breakdown of the fused-bottleneck kernels on the card:
-bf16 (K1, K2) and int8 (K3).
+bf16 (K1, K2), int8 (K3) and the stem's (K4).
 
-Builds ``csrc/fused_bottleneck.cu`` and ``csrc/fused_bottleneck_int8.cu`` a
-second time with ``-DBOTTLENECK_PROFILE`` into libraries of their own (the
-main path's build never sets it), launches K1, K2 and K3 (identity
-residual) once each at the eval-batch-256 shapes of ``chip_smoke.py`` on
-operands prepared beforehand, and prints one JSON line per run: the SM
+Builds ``csrc/fused_bottleneck.cu``, ``csrc/fused_bottleneck_int8.cu`` and
+``csrc/fused_stem_bottleneck.cu`` a second time with ``-DBOTTLENECK_PROFILE``
+into libraries of their own (the main path's build never sets it), launches
+K1, K2, K3 (identity residual) and K4 once each at the eval-batch-256 shapes
+of ``chip_smoke.py`` on operands prepared beforehand, and prints one JSON
+line per run: the SM
 cycles per tile of each phase, as seen by the first consumer thread
 (warpgroup 0, warp 0) and by the producer thread, summed over all blocks
 and divided by the tiles they walked. The clock reads and their sums cost
@@ -13,7 +14,9 @@ a few percent of the kernel's time (at K3's mid 128 ptxas serializes the
 instrumented build's wgmma, so its products read high); the kernel time
 beside them is of the instrumented build. Run on the card:
 
-    python -m dir_tpu_torch.profile_kernels
+    python -m dir_tpu_torch.profile_kernels [K1 K2 K3 K4]
+
+with kernel names to run only those (and build only their libraries).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 from dir_tpu_torch.ops import cuda_build
 from dir_tpu_torch.ops import fused_bottleneck as fb
 from dir_tpu_torch.ops import fused_bottleneck_int8 as q8
+from dir_tpu_torch.ops import fused_stem_bottleneck as st
 
 VARIANT = "_profile"
 # the phases of both kernels' consumers (K3's conv1 products include the
@@ -35,6 +39,10 @@ VARIANT = "_profile"
 CONSUMER = ("weights wait", "conv1 waits", "conv1 products", "y1 epilogue",
             "conv2 waits", "conv2 products", "y2 to registers", "conv3 waits",
             "conv3 products", "output epilogue")
+# K4's consumers ("strip waits" include the barrier before each tile's pool)
+STEM_CONSUMER = ("weights wait", "strip waits", "pool", "conv1 products",
+                 "y1 epilogue", "conv2 products", "y2 to registers",
+                 "conv3 + projection products", "output epilogue")
 PRODUCER = ("waits for a free stage", "issuing copies")
 # (name, shape, mid, bands, projection): chip_smoke.py's shapes
 RUNS = (("K1", (256, 64, 64, 256), 64, 0, False),
@@ -42,6 +50,8 @@ RUNS = (("K1", (256, 64, 64, 256), 64, 0, False),
         ("K2", (256, 32, 32, 512), 128, 4, False))
 RUNS_INT8 = (("K3 layer1", (256, 64, 64, 256), 64),
              ("K3 layer2", (256, 32, 32, 512), 128))
+# K4: the raw stem output, mid, O
+RUN_STEM = ("K4", (256, 128, 128, 64), 64, 256)
 
 
 def _weights(g, c: int, mid: int, o: int, down: bool) -> list:
@@ -94,12 +104,16 @@ def _profile(lib, launch, report: dict, consumer_names) -> None:
         "producer_cycles_per_tile": producer}), flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: no CUDA device")
+    wanted = set(sys.argv[1:] if argv is None else argv) or {"K1", "K2", "K3",
+                                                              "K4"}
+    mods = [m for m, names in ((fb, {"K1", "K2"}), (q8, {"K3"}), (st, {"K4"}))
+            if names & wanted]
     flags = "-DBOTTLENECK_PROFILE",
     procs = [(m, cuda_build.start_build(m.NAME, (*m.NVCC_EXTRA_FLAGS, *flags),
-                                        VARIANT)) for m in (fb, q8)]
+                                        VARIANT)) for m in mods]
     libs = {}
     for m, proc in procs:
         cuda_build.finish_build(m.NAME, proc, VARIANT)
@@ -111,6 +125,8 @@ def main() -> int:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     for name, shape, mid, bands, down in RUNS:
+        if name[:2] not in wanted:
+            continue
         x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
         op = fb.kernel_operands(*_weights(g, shape[-1], mid, shape[-1], down),
                                 bands=bands)
@@ -118,6 +134,8 @@ def main() -> int:
                  {"kernel": name, "shape": list(shape) + [mid],
                   "projection": down, "device": smi}, CONSUMER)
     for name, shape, mid in RUNS_INT8:
+        if "K3" not in wanted:
+            continue
         report = {"kernel": name, "shape": list(shape) + [mid],
                   "projection": False, "device": smi}
         x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
@@ -125,6 +143,17 @@ def main() -> int:
         op = q8.kernel_operands(*ws[:6], *_scales(x, ws))
         _profile(libs[q8], lambda: q8.launch_on(libs[q8], x, op), report,
                  CONSUMER)
+    name, shape, mid, o = RUN_STEM
+    if "K4" not in wanted:
+        return 0
+    c = shape[-1]
+    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    g1 = torch.rand(c, generator=g, device=dev) + 0.5
+    t1 = torch.rand(c, generator=g, device=dev) - 0.5
+    op = st.kernel_operands(g1, t1, *_weights(g, c, mid, o, True))
+    _profile(libs[st], lambda: st.launch_on(libs[st], x, op),
+             {"kernel": name, "shape": list(shape) + [mid, o],
+              "projection": True, "device": smi}, STEM_CONSUMER)
     return 0
 
 

@@ -438,6 +438,8 @@ def test_cuda_int8_kernel_refuses_what_it_does_not_take():
     ((2, 128, 128, 64), 64, 256),        # the stem's shape
     ((1, 16, 24, 16), 16, 32),           # small
     ((3, 24, 36, 32), 32, 48),           # ragged tiles on both axes
+    ((1, 128, 128, 64), 64, 256),        # batch 1: 32 tiles, fewer than SMs
+    ((5, 128, 128, 64), 64, 256),        # 160 tiles: more than one per SM
 ])
 def test_cuda_stem_kernel_matches_plain(shape, mid, o):
     """K4 against its plain version: the pooled map is bit-equal by
@@ -462,6 +464,82 @@ def test_cuda_stem_kernel_matches_plain(shape, mid, o):
     # four bf16 ulps of the output scale, as for K1
     scale = float(ref.float().abs().max())
     assert float((out.float() - ref.float()).abs().max()) <= 4 * 2 ** -8 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,mid,o", [
+    ((2, 128, 128, 64), 64, 256),
+    ((2, 40, 72, 32), 32, 48),           # ragged tiles, the map's border
+])
+def test_cuda_stem_kernel_pool_skips_the_zero_fill(shape, mid, o):
+    """t1 > 0 on every channel and x mostly below -t1 / g1: most of the
+    activated map is 0, so a zero-filled raw pixel outside the map taken
+    into the pool (relu(t1) > 0) would raise the border's pooled pixels."""
+    dev = _cuda_or_skip()
+    rng = np.random.RandomState(13)
+    c = shape[-1]
+    ws = _folded(rng, c, mid, o, True, dev)
+    g1 = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)).to(dev)
+    t1 = torch.from_numpy(rng.uniform(0.2, 0.6, c).astype(np.float32)).to(dev)
+    x = torch.from_numpy((rng.randn(*shape) - 2.0).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    out = st.fused_stem_bottleneck(x, g1, t1, *ws)
+    ref = st.fused_stem_bottleneck_plain(x, g1, t1, *ws)
+    torch.cuda.synchronize()
+    scale = float(ref.float().abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= 4 * 2 ** -8 * scale
+
+
+@pytest.mark.gpu
+def test_cuda_stem_kernel_back_to_back_launches_agree():
+    """Two launches on one stream on operands prepared once: equal bit for
+    bit."""
+    dev = _cuda_or_skip()
+    rng = np.random.RandomState(15)
+    ws = _folded(rng, 64, 64, 256, True, dev)
+    g1 = torch.from_numpy(rng.uniform(0.5, 1.5, 64).astype(np.float32)).to(dev)
+    t1 = torch.from_numpy(rng.uniform(-0.5, 0.5, 64).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.randn(3, 128, 128, 64).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    operands = st.kernel_operands(g1, t1, *ws)
+    first = st.launch(x, operands)
+    second = st.launch(x, operands)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_cuda_stem_kernel_is_wgmma_fed_by_tma():
+    """The SASS of K4 (mid 16, 32, 64) has tensor-core products through
+    wgmma (HGMMA) and TMA loads (UTMALDG), and no mma.sync (HMMA): the WMMA
+    tile kernel it replaced is gone."""
+    _cuda_or_skip()
+    import shutil
+    import subprocess
+
+    from dir_tpu_torch.ops import cuda_build
+    st.build()
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [cuobjdump, "--dump-sass", cuda_build.library_path(st.NAME)],
+        capture_output=True, text=True, check=True).stdout
+    functions = [f for f in sass.split("Function : ")[1:]
+                 if "fused_stem_bottleneck_kernel" in f.splitlines()[0]]
+    assert len(functions) == 3
+    for f in functions:
+        assert "HGMMA" in f and "UTMALDG" in f, f.splitlines()[0]
+    assert "HMMA" not in sass
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,mid,o", [
+    (64, 64, 256), (16, 16, 32), (32, 32, 48), (64, 32, 128), (48, 64, 64),
+    (32, 16, 256),
+])
+def test_cuda_stem_layout_is_the_kernels(c, mid, o):
+    """Python's image size, shared memory and stages are the library's."""
+    _cuda_or_skip()
+    assert st.library_layout(st._library(), c, mid, o) == st.layout(c, mid, o)
 
 
 @pytest.mark.gpu
