@@ -243,51 +243,52 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* ring, ui
   const int arow = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int akof = (lane >> 4) * 8;
   uint32_t it = 0;
+  // the ring's next strip, strip s of its tile, pooled into halo rows 2s and
+  // 2s + 1; each warp releases the stage once it is done with it
+  auto pool_strip = [&](int s) {
+    const int stage = (int)(it % (uint32_t)p.stages);
+    mbar_wait(&full[stage], (it / (uint32_t)p.stages) & 1);
+    ++it;
+    PROF(1)
+    const unsigned char* strip = ring + stage * STRIP_SLOT;
+    for (int q = (wid - s) & 7; q < STRIP_ROUNDS; q += 8) {
+      const int pp = 4 * q + (lane >> 3);    // pooled pixel of the strip, 0..35
+      const int pr = pp / HALO_W;            // its halo row within the strip, 0..1
+      const int pc = pp - pr * HALO_W;       // its halo column
+      const int r0 = 2 * pr * STRIP_W + 2 * pc;  // its window's first raw pixel
+      uint32_t best[4] = {0u, 0u, 0u, 0u};   // +0: the pool's padding after the ReLU
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const uint4 raw =
+              *reinterpret_cast<const uint4*>(strip + swizzled(r0 + dy * STRIP_W + dx, k));
+          const uint32_t* rw = reinterpret_cast<const uint32_t*>(&raw);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            best[j] = max_bf16x2(best[j], add_bf16x2(mul_bf16x2(rw[j], gp[j]), tp[j]));
+        }
+      }
+      *reinterpret_cast<uint4*>(halo + swizzled((2 * s + pr) * HALO_W + pc, k)) =
+          make_uint4(best[0], best[1], best[2], best[3]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    PROF(2)
+  };
+  if (threadIdx.x < (HALO_ROWS - HALO) * 8)   // the pooled halo's rows 180-191: zero
+    *reinterpret_cast<uint4*>(halo + HALO * ROW + threadIdx.x * 16) = make_uint4(0u, 0u, 0u, 0u);
   mbar_wait(wbar, 0);
   PROF(0)
 
+  int ahead = 0;                             // strips of this tile pooled during the last one
   for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
     const int tx0 = (tile % p.ntx) * TW;
     const int ty0 = ((tile / p.ntx) % p.nty) * TH;
     const int n = tile / (p.ntx * p.nty);
+    const bool more = tile + gridDim.x < p.tiles;
 
-    // the pool writes the pooled halo in y1's place: both warpgroups have
-    // finished reading the last tile's y1
-    consumers_sync();
-    PROF(1)
-    if (threadIdx.x < (HALO_ROWS - HALO) * 8)   // rows 180-191: zero
-      *reinterpret_cast<uint4*>(halo + HALO * ROW + threadIdx.x * 16) = make_uint4(0u, 0u, 0u, 0u);
-    for (int s = 0; s < STRIPS; ++s) {
-      const int stage = (int)(it % (uint32_t)p.stages);
-      mbar_wait(&full[stage], (it / (uint32_t)p.stages) & 1);
-      ++it;
-      PROF(1)
-      const unsigned char* strip = ring + stage * STRIP_SLOT;
-      for (int q = (wid - s) & 7; q < STRIP_ROUNDS; q += 8) {
-        const int pp = 4 * q + (lane >> 3);  // pooled pixel of the strip, 0..35
-        const int pr = pp / HALO_W;          // its halo row within the strip, 0..1
-        const int pc = pp - pr * HALO_W;     // its halo column
-        const int r0 = 2 * pr * STRIP_W + 2 * pc;  // its window's first raw pixel
-        uint32_t best[4] = {0u, 0u, 0u, 0u}; // +0: the pool's padding after the ReLU
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            const uint4 raw =
-                *reinterpret_cast<const uint4*>(strip + swizzled(r0 + dy * STRIP_W + dx, k));
-            const uint32_t* rw = reinterpret_cast<const uint32_t*>(&raw);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              best[j] = max_bf16x2(best[j], add_bf16x2(mul_bf16x2(rw[j], gp[j]), tp[j]));
-          }
-        }
-        *reinterpret_cast<uint4*>(halo + swizzled((2 * s + pr) * HALO_W + pc, k)) =
-            make_uint4(best[0], best[1], best[2], best[3]);
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[stage]);
-      PROF(2)
-    }
+    for (int s = ahead; s < STRIPS; ++s) pool_strip(s);
     // the pooled halo, written by these threads, is read by wgmma
     fence_proxy_async();
     consumers_sync();
@@ -366,6 +367,11 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* ring, ui
       fence_regs(acc2);
     }
     PROF(5)
+    // from here the next tile's pool may write the pooled halo in y1's
+    // place: both warpgroups have read y1
+    consumers_sync();
+    if (more && threadIdx.x < (HALO_ROWS - HALO) * 8)
+      *reinterpret_cast<uint4*>(halo + HALO * ROW + threadIdx.x * 16) = make_uint4(0u, 0u, 0u, 0u);
 
     // y2 = bf16(relu(conv2 + b2)) stays in registers: the accumulator layout
     // of two neighbouring 8-column tiles is the A register layout of one k16
@@ -385,7 +391,8 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* ring, ui
 
     // conv3 and the projection, N3 output channels at a time. The wrapper
     // ordered every 32 columns of w3 and wd so that a thread's eight values
-    // of four 8-column tiles are eight consecutive channels.
+    // of four 8-column tiles are eight consecutive channels. While chunk j's
+    // products run, the warps pool the next tile's strip j.
     bf16* outn = p.out + (size_t)n * p.H * p.W * p.O;
     const int gy = ty0 + oy;
     for (int j = 0; j < p.nj; ++j) {
@@ -400,6 +407,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* ring, ui
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) Wgmma<N3>::rs(accd, ad[kk], wdc + kk * 2);
       wg_commit();
+      if (more && j < STRIPS) pool_strip(j);
       wg_wait_all();
       fence_regs(acc3);
       fence_regs(accd);
@@ -435,6 +443,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* ring, ui
       }
       PROF(8)
     }
+    ahead = more ? min(p.nj, STRIPS) : 0;
     PROF_COUNT(15)
   }
   if (threadIdx.x == 0) {
