@@ -186,11 +186,22 @@ __device__ __forceinline__ void produce(const CUtensorMap* tm, const Params& p,
   for (int off = 0; off < p.image_bytes; off += 16384)
     bulk_copy(wres + off, p.image + off, (uint32_t)min(16384, p.image_bytes - off), wbar);
   uint32_t it = 0;
+  // strip s of tile, prefetched into L2 two strips before its load
+  auto prefetch = [&](int tile, int s) {
+    if (s >= STRIPS) {
+      tile += gridDim.x;
+      s -= STRIPS;
+    }
+    if (tile < p.tiles)
+      tma_prefetch(tm, 0, 2 * (tile % p.ntx) * TW - 3, 2 * ((tile / p.ntx) % p.nty) * TH - 3 + 4 * s,
+                   tile / (p.ntx * p.nty));
+  };
   for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
     const int tx = tile % p.ntx;
     const int ty = (tile / p.ntx) % p.nty;
     const int n = tile / (p.ntx * p.nty);
     for (int s = 0; s < STRIPS; ++s) {
+      prefetch(tile, s + 2);
       const int st = (int)(it % (uint32_t)p.stages);
       mbar_wait(&empty[st], ((it / (uint32_t)p.stages) & 1) ^ 1);
       PROF(0)

@@ -103,6 +103,15 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint6
       : "memory");
 }
 
+// The same box, prefetched into L2 only.
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map, int c, int x, int y, int n) {
+  asm volatile(
+      "cp.async.bulk.prefetch.tensor.4d.L2.global.tile [%0, {%1, %2, %3, %4}];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c), "r"(x), "r"(y), "r"(n)
+      : "memory");
+}
+
 // Contiguous bytes (a multiple of 16) from device memory.
 __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
                                           uint64_t* bar) {
