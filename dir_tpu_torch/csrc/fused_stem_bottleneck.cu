@@ -34,10 +34,10 @@
 //     tile, re-reading one raw row in five (from L2). The box's origin may be
 //     negative; TMA fills with NaN outside x (the pool drops those pixels).
 //   Roles. One producer thread issues every strip into a ring of 2-4 stages
-//     guarded by full and empty mbarriers (the next tile's first strips
-//     arrive while this tile runs conv2 and conv3); two consumer warpgroups
-//     (setmaxnreg: 224 registers, the producer's 56) pool and run every
-//     product as wgmma. Every wait is bounded: a fault traps.
+//     guarded by full and empty mbarriers, each strip prefetched into L2 two
+//     strips before its load; two consumer warpgroups (setmaxnreg: 224
+//     registers, the producer's 56) pool and run every product as wgmma.
+//     Every wait is bounded: a fault traps.
 //   The pool. A zero fill would not be the pool's padding: a zero raw pixel
 //     becomes relu(bf16(t1)). The strip's map fills with NaN instead, outside
 //     [0, 2H) x [0, 2W) and beyond C, and max.bf16x2 returns the other
@@ -49,9 +49,15 @@
 //     rounds the exact result once, which is what the plain version's fp32
 //     product (exact for bf16 operands) and fp32 sum (rounded twice, to the
 //     same bf16) give, and two instructions with their own rounding are never
-//     contracted into an FMA. A strip's 288 units (36 pooled pixels x 8 chunks of 8
-//     channels) are nine warp rounds; warp w takes rounds w - s mod 8 (and
-//     round 8 when that is 0) of strip s, so the extra round rotates.
+//     contracted into an FMA. A strip's 288 units (36 pooled pixels x 8
+//     chunks of 8 channels) are nine warp rounds; warp w takes rounds
+//     w - s mod 8 (and round 8 when that is 0) of strip s, so the extra round
+//     rotates.
+//   When the pool runs. Once both warpgroups have finished conv2, y1's space
+//     (which the pooled halo shares) is free: while the products of conv3's
+//     chunk j run, the warps pool the next tile's strip j, and a tile starts
+//     by pooling the strips not yet pooled (one at the stem's widths). The
+//     products hide behind the pool, and the ring's stages free earlier.
 //   The pooled halo is written as TMA would write it: 192 rows of 128 bytes,
 //     the 16-byte chunk c of row r at chunk c ^ (r % 8), rows 180-191 zero.
 //     conv1 reads it through a descriptor (ss wgmma), each consumer
@@ -66,7 +72,8 @@
 //     rs wgmma on ldmatrix windows of y1), conv3 (rs wgmma on conv2's
 //     accumulators rounded in registers) and the epilogue (16-byte stores,
 //     w3's and wd's columns in ops/fused_bottleneck.py:channel_order) are the
-//     bf16 bottleneck kernel's.
+//     bf16 bottleneck kernel's, but that the epilogue rounds y3 and the
+//     residual with one cvt a pair and adds them with one fma.rn.relu.bf16x2.
 //   Weights and vectors. The weight image is ops/fused_bottleneck.py's for
 //     the projection form (w1, w2, w3, wd as swizzled K-major panels, C and
 //     mid zero-padded to one 64-wide panel) and stays in shared memory for the
@@ -177,7 +184,8 @@ __device__ __forceinline__ uint32_t add_relu_bf16x2(uint32_t a, uint32_t b) {
 __device__ __forceinline__ int swizzled(int r, int c) { return r * ROW + ((c ^ (r & 7)) << 4); }
 
 // The producer: one thread loads the weight image once, then issues each
-// tile's five strips, in order, through the ring.
+// tile's five strips, in order, through the ring, each prefetched into L2 as
+// the strip two places before it is loaded.
 __device__ __forceinline__ void produce(const CUtensorMap* tm, const Params& p,
                                         unsigned char* ring, uint64_t* full, uint64_t* empty,
                                         uint64_t* wbar, unsigned char* wres) {
@@ -185,32 +193,34 @@ __device__ __forceinline__ void produce(const CUtensorMap* tm, const Params& p,
   mbar_expect_tx(wbar, (uint32_t)p.image_bytes);
   for (int off = 0; off < p.image_bytes; off += 16384)
     bulk_copy(wres + off, p.image + off, (uint32_t)min(16384, p.image_bytes - off), wbar);
-  uint32_t it = 0;
-  // strip s of tile, prefetched into L2 two strips before its load
-  auto prefetch = [&](int tile, int s) {
+  // the box origin of strip s of a tile (s may run into the block's next
+  // tile): pooled halo rows 2s, 2s + 1 are pooled rows ty*8 - 1 + 2s ...,
+  // whose windows start at raw row 2 (ty*8 - 1 + 2s) - 1; likewise columns
+  struct Origin {
+    int x, y, n;
+    bool valid;
+  };
+  auto origin = [&](int tile, int s) {
     if (s >= STRIPS) {
       tile += gridDim.x;
       s -= STRIPS;
     }
-    if (tile < p.tiles)
-      tma_prefetch(tm, 0, 2 * (tile % p.ntx) * TW - 3, 2 * ((tile / p.ntx) % p.nty) * TH - 3 + 4 * s,
-                   tile / (p.ntx * p.nty));
-  };
-  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
     const int tx = tile % p.ntx;
     const int ty = (tile / p.ntx) % p.nty;
-    const int n = tile / (p.ntx * p.nty);
-    for (int s = 0; s < STRIPS; ++s) {
-      prefetch(tile, s + 2);
+    return Origin{2 * tx * TW - 3, 2 * ty * TH - 3 + 4 * s, tile / (p.ntx * p.nty),
+                  tile < p.tiles};
+  };
+  uint32_t it = 0;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    for (int s = 0; s < STRIPS; ++s, ++it) {
+      const Origin ahead = origin(tile, s + 2);
+      if (ahead.valid) tma_prefetch(tm, 0, ahead.x, ahead.y, ahead.n);
       const int st = (int)(it % (uint32_t)p.stages);
       mbar_wait(&empty[st], ((it / (uint32_t)p.stages) & 1) ^ 1);
       PROF(0)
       mbar_expect_tx(&full[st], STRIP_BYTES);
-      // pooled halo rows 2s, 2s + 1 are pooled rows ty*8 - 1 + 2s ..., whose
-      // windows start at raw row 2 (ty*8 - 1 + 2s) - 1; likewise columns
-      tma_box(ring + st * STRIP_SLOT, tm, &full[st], 0, 2 * tx * TW - 3,
-              2 * ty * TH - 3 + 4 * s, n);
-      ++it;
+      const Origin o = origin(tile, s);
+      tma_box(ring + st * STRIP_SLOT, tm, &full[st], 0, o.x, o.y, o.n);
       PROF(1)
     }
     PROF_COUNT(15)
@@ -219,7 +229,8 @@ __device__ __forceinline__ void produce(const CUtensorMap* tm, const Params& p,
 }
 
 // The two consumer warpgroups. Per tile: all eight warps pool the five strips
-// into the pooled halo; warpgroup wg computes conv1's mid columns [wg * M/2,
+// into the pooled halo (those of the next tile during this one's conv3, as
+// far as it has chunks); warpgroup wg computes conv1's mid columns [wg * M/2,
 // (wg + 1) * M/2) over all 192 halo rows, then conv2, conv3 and the
 // projection for its own 64 pixels: output rows 4 wg .. 4 wg + 3, one per
 // warp.
@@ -287,8 +298,6 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* ring, ui
     if (lane == 0) mbar_arrive(&empty[stage]);
     PROF(2)
   };
-  if (threadIdx.x < (HALO_ROWS - HALO) * 8)   // the pooled halo's rows 180-191: zero
-    *reinterpret_cast<uint4*>(halo + HALO * ROW + threadIdx.x * 16) = make_uint4(0u, 0u, 0u, 0u);
   mbar_wait(wbar, 0);
   PROF(0)
 
@@ -300,6 +309,8 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* ring, ui
     const bool more = tile + gridDim.x < p.tiles;
 
     for (int s = ahead; s < STRIPS; ++s) pool_strip(s);
+    if (threadIdx.x < (HALO_ROWS - HALO) * 8)   // rows 180-191: zero
+      *reinterpret_cast<uint4*>(halo + HALO * ROW + threadIdx.x * 16) = make_uint4(0u, 0u, 0u, 0u);
     // the pooled halo, written by these threads, is read by wgmma
     fence_proxy_async();
     consumers_sync();
@@ -381,8 +392,6 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* ring, ui
     // from here the next tile's pool may write the pooled halo in y1's
     // place: both warpgroups have read y1
     consumers_sync();
-    if (more && threadIdx.x < (HALO_ROWS - HALO) * 8)
-      *reinterpret_cast<uint4*>(halo + HALO * ROW + threadIdx.x * 16) = make_uint4(0u, 0u, 0u, 0u);
 
     // y2 = bf16(relu(conv2 + b2)) stays in registers: the accumulator layout
     // of two neighbouring 8-column tiles is the A register layout of one k16

@@ -1,7 +1,8 @@
 // The Hopper plumbing of the persistent, warp-specialised bottleneck kernels
-// (fused_bottleneck.cu: K1, K2; fused_bottleneck_int8.cu: K3): their roles,
-// mbarriers, TMA box and bulk copies, wgmma descriptors and fences, and the
-// host-side tensor-map encoding of NHWC activations.
+// (fused_bottleneck.cu: K1, K2; fused_bottleneck_int8.cu: K3;
+// fused_stem_bottleneck.cu: K4): their roles, mbarriers, TMA box, prefetch
+// and bulk copies, wgmma descriptors and fences, and the host-side
+// tensor-map encoding of NHWC activations.
 //
 // Roles: two consumer warpgroups do the math; one thread of a producer
 // warpgroup issues every copy into a ring of stages, each guarded by a full
@@ -92,8 +93,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (clock64() - t0 > WAIT_LIMIT) __trap();
 }
 
-// A (64 channels x 18 x 11 or 16 x 8 pixels) box of x through the tensor map,
-// 128-byte swizzled, zero where it leaves the tensor.
+// A (64 channels x 18 x 11, 16 x 8 or 37 x 5 pixels) box of x through the
+// tensor map, 128-byte swizzled, filled (zero or NaN) where it leaves the
+// tensor.
 __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint64_t* bar, int c,
                                         int x, int y, int n) {
   asm volatile(

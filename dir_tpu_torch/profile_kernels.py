@@ -6,17 +6,14 @@ Builds ``csrc/fused_bottleneck.cu``, ``csrc/fused_bottleneck_int8.cu`` and
 into libraries of their own (the main path's build never sets it), launches
 K1, K2, K3 (identity residual) and K4 once each at the eval-batch-256 shapes
 of ``chip_smoke.py`` on operands prepared beforehand, and prints one JSON
-line per run: the SM
-cycles per tile of each phase, as seen by the first consumer thread
-(warpgroup 0, warp 0) and by the producer thread, summed over all blocks
-and divided by the tiles they walked. The clock reads and their sums cost
-a few percent of the kernel's time (at K3's mid 128 ptxas serializes the
-instrumented build's wgmma, so its products read high); the kernel time
-beside them is of the instrumented build. Run on the card:
+line per run: the SM cycles per tile of each phase, as seen by the first
+consumer thread (warpgroup 0, warp 0) and by the producer thread, summed
+over all blocks and divided by the tiles they walked. The clock reads and
+their sums cost a few percent of the kernel's time (at K3's mid 128 ptxas
+serializes the instrumented build's wgmma, so its products read high); the
+kernel time beside them is of the instrumented build. Run on the card:
 
-    python -m dir_tpu_torch.profile_kernels [K1 K2 K3 K4]
-
-with kernel names to run only those (and build only their libraries).
+    python -m dir_tpu_torch.profile_kernels
 """
 
 from __future__ import annotations
@@ -39,7 +36,9 @@ VARIANT = "_profile"
 CONSUMER = ("weights wait", "conv1 waits", "conv1 products", "y1 epilogue",
             "conv2 waits", "conv2 products", "y2 to registers", "conv3 waits",
             "conv3 products", "output epilogue")
-# K4's consumers ("strip waits" include the barrier before each tile's pool)
+# K4's consumers: "strip waits" and "pool" count the next tile's strips
+# pooled during conv3 too, "conv3 + projection products" only the wait after
+# them, and "y2 to registers" the barrier after conv2
 STEM_CONSUMER = ("weights wait", "strip waits", "pool", "conv1 products",
                  "y1 epilogue", "conv2 products", "y2 to registers",
                  "conv3 + projection products", "output epilogue")
@@ -104,16 +103,12 @@ def _profile(lib, launch, report: dict, consumer_names) -> None:
         "producer_cycles_per_tile": producer}), flush=True)
 
 
-def main(argv=None) -> int:
+def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: no CUDA device")
-    wanted = set(sys.argv[1:] if argv is None else argv) or {"K1", "K2", "K3",
-                                                              "K4"}
-    mods = [m for m, names in ((fb, {"K1", "K2"}), (q8, {"K3"}), (st, {"K4"}))
-            if names & wanted]
     flags = "-DBOTTLENECK_PROFILE",
     procs = [(m, cuda_build.start_build(m.NAME, (*m.NVCC_EXTRA_FLAGS, *flags),
-                                        VARIANT)) for m in mods]
+                                        VARIANT)) for m in (fb, q8, st)]
     libs = {}
     for m, proc in procs:
         cuda_build.finish_build(m.NAME, proc, VARIANT)
@@ -125,8 +120,6 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     for name, shape, mid, bands, down in RUNS:
-        if name[:2] not in wanted:
-            continue
         x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
         op = fb.kernel_operands(*_weights(g, shape[-1], mid, shape[-1], down),
                                 bands=bands)
@@ -134,8 +127,6 @@ def main(argv=None) -> int:
                  {"kernel": name, "shape": list(shape) + [mid],
                   "projection": down, "device": smi}, CONSUMER)
     for name, shape, mid in RUNS_INT8:
-        if "K3" not in wanted:
-            continue
         report = {"kernel": name, "shape": list(shape) + [mid],
                   "projection": False, "device": smi}
         x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
@@ -144,8 +135,6 @@ def main(argv=None) -> int:
         _profile(libs[q8], lambda: q8.launch_on(libs[q8], x, op), report,
                  CONSUMER)
     name, shape, mid, o = RUN_STEM
-    if "K4" not in wanted:
-        return 0
     c = shape[-1]
     x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
     g1 = torch.rand(c, generator=g, device=dev) + 0.5

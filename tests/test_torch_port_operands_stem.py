@@ -25,7 +25,6 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from dir_tpu_torch.ops import fused_bottleneck as fb
 from dir_tpu_torch.ops import fused_stem_bottleneck as st
 
 sys.path.insert(0, os.path.dirname(__file__))
