@@ -26,7 +26,7 @@ from dir_tpu_torch.ops import cuda_build
 from dir_tpu_torch.ops import fused_bottleneck as fb
 
 NAME = "fused_stem_bottleneck"       # csrc/fused_stem_bottleneck.cu
-NVCC_EXTRA_FLAGS = ("-ldl",)       # dlopen of the driver's cuTensorMapEncodeTiled
+NVCC_EXTRA_FLAGS = ("-ldl",)       # dlopen of the CUDA driver's cuTensorMapEncodeTiled
 # The kernel's layout constants (csrc/fused_stem_bottleneck.cu), in bytes.
 _MAX_SMEM = 232448                   # H100: dynamic shared memory of a block
 _ROW = 128                           # a strip, halo or weight panel row
