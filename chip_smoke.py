@@ -41,15 +41,30 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      moved parameters; two steps of the default decoder (the factored splat
      conv, no kernel); and K5's training route against the plain splat at
      fp32 (loss and every parameter's gradient);
-  6. serve an fp32 trunk under the fused flags (the bf16 kernels' and C's)
+  6. drive the Trainer on the card: configuration T's model (the flagship
+     with B's flags, bf16, conditioned random weights) through
+     ``Trainer.make_data/make_model/train`` on a synthetic split (128 train,
+     64 test samples, written by the port's writer), device pipeline, batch
+     64: 2 epochs, each with its in-loop eval, then a second Trainer resumed
+     from ``latest`` (epoch, step, best and the augmentation generator's
+     state checked) for a third epoch, then one epoch on the host path
+     (uint8 wire format). The counts are set to 0 just before and read just
+     after; every step must launch K5 4 times and nothing else, every eval
+     batch K1 2, K2 3 and K5 4 times. K1, K2 and K5 are held against their
+     plain versions on what the last in-loop eval fed them. Prints ms per
+     step, the loader's wait and share, ms per eval batch, the losses, the
+     summaries and peak memory;
+  7. serve an fp32 trunk under the fused flags (the bf16 kernels' and C's)
      at cut depth: the kernels take bf16 only, so the guards route the
      blocks unfused;
-  7. print the ``kernels`` line, then the one-line result.
+  8. print the ``kernels`` line, then the one-line result.
 """
 
+import collections
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -116,6 +131,8 @@ CONFIGS = "ABC"
 # here
 EXPECTED = {"A": (2, 0, 0, 0, 0), "B": (2, 3, 0, 0, 4), "C": (0, 0, 5, 0, 0),
             "T": (0, 0, 0, 0, 4)}
+# ... per in-loop eval batch of the Trainer (its steps launch T's)
+EXPECTED_TRAINER_EVAL = (2, 3, 0, 0, 4)
 # Configuration T: bench.py:bench_train's batch; warm-up and timed steps on
 # the repeated batch; steps of the default decoder
 TRAIN_BATCH = 64
@@ -138,6 +155,10 @@ K5_TRAIN_BATCH = 16
 K5_TRAIN_LOSS_RTOL = 1e-6
 K5_TRAIN_GRAD_RTOL = 3e-4
 GRAD_FLOOR = 1e-4
+# The Trainer on the card: synthetic split sizes (2 steps an epoch, 1 eval
+# batch), epochs before the resume and after it
+TRAINER_TRAIN, TRAINER_TEST = 128, 64
+TRAINER_EPOCHS, TRAINER_RESUMED_EPOCHS = 2, 3
 # The fp32 trunk under the fused flags against the same model without them:
 # the same fp32 computation, up to cuDNN's choice of algorithm.
 F1_RTOL = 1e-5
@@ -988,6 +1009,264 @@ def train_phase(mods):
     return launches, result
 
 
+def _instrument(mods, trainer, record: dict, fed: dict):
+    """Wrap the trainer's train and eval steps and its on-device
+    preprocessing: each call's host time (to a synchronise), its kernel
+    launches and, for steps, the total loss go into ``record``;
+    ``fed["on"]`` is true while an eval step runs."""
+    def wrap(kind, fn):
+        def call(*args):
+            before = kernel_counts(mods)
+            t = time.perf_counter()
+            fed["on"] = kind == "eval"
+            try:
+                out = fn(*args)
+                torch.cuda.synchronize()
+            finally:
+                fed["on"] = False
+            entry = {"ms": (time.perf_counter() - t) * 1e3,
+                     "launches": tuple(a - b for a, b in
+                                       zip(kernel_counts(mods), before))}
+            if kind == "train":
+                entry["loss"] = float(sum(torch.stack(
+                    list(out[1].values())).double().cpu().tolist()))
+            record[kind].append(entry)
+            return out
+        return call
+
+    trainer.train_step = wrap("train", trainer.train_step)
+    trainer.eval_step = wrap("eval", trainer.eval_step)
+    if trainer.preprocess_train is not None:
+        trainer.preprocess_train = wrap("preprocess",
+                                        trainer.preprocess_train)
+
+
+def trainer_phase(mods):
+    """The Trainer on the card: configuration T's model through
+    make_data/make_model/train with the device pipeline (2 epochs, a resume,
+    a third), then an epoch on the host path; every step's and eval batch's
+    launches checked; K1, K2 and K5 held against their plain versions on
+    what the last in-loop eval fed them."""
+    from dir_tpu_torch.config import Config, DataConfig, TrainConfig
+    from dir_tpu_torch.data import synthetic
+    from dir_tpu_torch.models import dir as dir_module
+    from dir_tpu_torch.serve import (CONFIG_B, build_flagship,
+                                     condition_random_)
+    from dir_tpu_torch.train.trainer import AUG_STATE_KEY, Trainer
+
+    fb, _, _, bs = mods
+    root = os.path.join(REPO, "build", "chip_smoke_trainer")
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir = os.path.join(root, "data")
+    model, model_cfg, mano_l, mano_r = build_flagship(
+        device="cuda", dtype="bfloat16", seed=0, **CONFIG_B)
+    condition_random_(model, mano_l, mano_r, seed=0)
+    state_dict = {k: v.detach().cpu().clone()
+                  for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    t = time.monotonic()
+    ml_cpu, mr_cpu = mano_l.to("cpu"), mano_r.to("cpu")
+    synthetic.generate(data_dir, ml_cpu, mr_cpu, split="train",
+                       num_samples=TRAINER_TRAIN, seed=0)
+    synthetic.generate(data_dir, ml_cpu, mr_cpu, split="test",
+                       num_samples=TRAINER_TEST, seed=1)
+    say(f"trainer: synthetic split written ({TRAINER_TRAIN} train, "
+        f"{TRAINER_TEST} test, 256x256) in {time.monotonic() - t:.1f} s")
+
+    def config(out, epochs, **data):
+        return Config(
+            model=model_cfg,
+            data=DataConfig(data_dir=data_dir, img_size=256, num_workers=4,
+                            **data),
+            train=TrainConfig(batch_size=TRAIN_BATCH, total_epochs=epochs,
+                              print_every=1, draw_every=0,
+                              eval_every_epochs=1,
+                              output_dir=os.path.join(root, out)))
+
+    record = {"train": [], "eval": [], "preprocess": [], "summaries": []}
+    fed = {"on": False}
+    splats = collections.deque(maxlen=4)
+    received = {}
+    blocks = {}
+
+    def trainer_for(cfg):
+        tr = Trainer(cfg, mano_l, mano_r, device="cuda")
+        tr.make_data()
+        tr.make_model(init_state_dict=state_dict)
+        _instrument(mods, tr, record, fed)
+        blocks.clear()
+        blocks.update({f"layer1_{i}": tr.model.backbone.layer1[i]
+                       for i in (1, 2)})
+        blocks.update({f"layer2_{i}": tr.model.backbone.layer2[i]
+                       for i in (1, 2, 3)})
+        for name, blk in blocks.items():
+            blk.register_forward_pre_hook(
+                lambda _, args, name=name: keep(name, args[0]))
+        real_evaluate = tr.evaluate
+
+        def evaluate(*args, **kw):
+            record["summaries"].append(real_evaluate(*args, **kw))
+            return record["summaries"][-1]
+
+        tr.evaluate = evaluate
+        return tr
+
+    def keep(name, x):
+        if fed["on"]:
+            received[name] = x
+
+    def recording_splat(uv, feat, size, distance):
+        if fed["on"]:
+            splats.append((uv, feat, size, distance))
+        return bs.bone_splat(uv, feat, size, distance)
+
+    runs = {}
+    dir_module.bone_splat = recording_splat
+    reset_counts(mods)
+    try:
+        for name, cfg, resume in (
+                ("device pipeline", config("out", TRAINER_EPOCHS,
+                                           device_pipeline=True), False),
+                ("resumed", config("out", TRAINER_RESUMED_EPOCHS,
+                                   device_pipeline=True), True),
+                ("host path (wire8)", config("out_host", 1, wire8=True),
+                 False)):
+            if resume:
+                first_best = runs["device pipeline"]["best"]
+                first_state = runs["device pipeline"]["generator_state"]
+                cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+                    cfg.train, continue_train=True,
+                    checkpoint=os.path.join(root, "out", "checkpoint")))
+            n_train, n_eval, n_pre = (len(record[k]) for k in
+                                      ("train", "eval", "preprocess"))
+            tr = trainer_for(cfg)
+            if resume:
+                state = tr.aug_generator.get_state()
+                ok = (tr.start_epoch == TRAINER_EPOCHS
+                      and tr.state.step == TRAINER_EPOCHS * 2
+                      and tr.best == first_best
+                      and torch.equal(state, first_state))
+                say(f"trainer resumed: start epoch {tr.start_epoch}, step "
+                    f"{tr.state.step}, best {tr.best:.6f} (first run "
+                    f"{first_best:.6f}), generator state equal "
+                    f"{torch.equal(state, first_state)}")
+                if not ok:
+                    raise RuntimeError("the resumed Trainer did not restore "
+                                       "epoch, step, best and generator")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            best = tr.train()
+            seconds = time.perf_counter() - t
+            runs[name] = {
+                "best": best, "seconds": seconds,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "steps": record["train"][n_train:],
+                "evals": record["eval"][n_eval:],
+                "preprocess": record["preprocess"][n_pre:],
+                "epoch_stats": list(tr.epoch_stats)}
+            if hasattr(tr, "aug_generator"):
+                runs[name]["generator_state"] = tr.aug_generator.get_state()
+                with open(os.path.join(cfg.train.output_dir, "checkpoint",
+                                       "meta.json")) as f:
+                    meta = json.load(f)
+                if meta[AUG_STATE_KEY] != runs[name][
+                        "generator_state"].tolist():
+                    raise RuntimeError("meta.json's generator state")
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        dir_module.bone_splat = bs.bone_splat
+    launches = kernel_counts(mods)
+
+    result = {"batch": TRAIN_BATCH, "train_samples": TRAINER_TRAIN,
+              "test_samples": TRAINER_TEST, "runs": {}}
+    for name, run in runs.items():
+        steps, evals = run["steps"], run["evals"]
+        for e in steps:
+            if e["launches"] != EXPECTED["T"]:
+                raise RuntimeError(f"trainer ({name}): a step launched "
+                                   f"{e['launches']} of {KERNELS}")
+            if not np.isfinite(e["loss"]):
+                raise RuntimeError(f"trainer ({name}): loss {e['loss']}")
+        for e in run["preprocess"]:
+            if any(e["launches"]):
+                raise RuntimeError(f"trainer ({name}): the preprocessing "
+                                   f"launched {e['launches']} of {KERNELS}")
+        for e in evals:
+            if e["launches"] != EXPECTED_TRAINER_EVAL:
+                raise RuntimeError(f"trainer ({name}): an eval batch "
+                                   f"launched {e['launches']} of {KERNELS}")
+        n_steps = sum(s["steps"] for s in run["epoch_stats"])
+        loop_s = sum(s["seconds"] for s in run["epoch_stats"])
+        wait_s = sum(s["loader_wait_seconds"] for s in run["epoch_stats"])
+        if n_steps != len(steps) or len(evals) != len(run["epoch_stats"]):
+            raise RuntimeError(f"trainer ({name}): {len(steps)} steps, "
+                               f"{len(evals)} eval batches recorded")
+        step_ms = sorted(e["ms"] for e in steps)
+        summary = {
+            "steps": n_steps, "eval_batches": len(evals),
+            "ms_per_iteration": loop_s / n_steps * 1e3,
+            "loader_wait_ms_per_step": wait_s / n_steps * 1e3,
+            "loader_wait_share": wait_s / loop_s,
+            "step_ms": [e["ms"] for e in steps],
+            "step_ms_median": step_ms[len(step_ms) // 2],
+            "preprocess_ms": [e["ms"] for e in run["preprocess"]],
+            "eval_batch_ms": [e["ms"] for e in evals],
+            "losses": [e["loss"] for e in steps],
+            "best_joint_mean_all_mm": run["best"],
+            "seconds": run["seconds"],
+            "peak_memory_bytes": run["peak_memory_bytes"],
+            "launches_per_step": list(steps[0]["launches"]),
+            "launches_per_eval_batch": list(evals[0]["launches"])}
+        result["runs"][name] = summary
+        say(f"trainer {name}: {n_steps} steps, ms per iteration (loader, "
+            "preprocessing, step, loss read) "
+            f"{summary['ms_per_iteration']:.3f}"
+            f", of it waiting on the loader "
+            f"{summary['loader_wait_ms_per_step']:.3f} ms a step (share "
+            f"{summary['loader_wait_share']:.4f}); on-device preprocessing ms "
+            f"{[round(v, 3) for v in summary['preprocess_ms']]}; train step "
+            f"ms {[round(v, 3) for v in summary['step_ms']]}; eval batch ms "
+            f"{[round(v, 3) for v in summary['eval_batch_ms']]}; losses "
+            f"{[round(v, 6) for v in summary['losses']]}; launches of "
+            f"{KERNELS} per step {steps[0]['launches']}, per eval batch "
+            f"{evals[0]['launches']}; best joint_mean_all_mm "
+            f"{run['best']:.4f}; peak memory "
+            f"{run['peak_memory_bytes'] / 2**30:.3f} GiB")
+    summary = record["summaries"][-1]
+    say("trainer: the last in-loop summary (host path): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in summary.items()))
+    result["inloop_summaries"] = record["summaries"]
+    say(f"trainer: launches of {KERNELS} over the three runs {launches}")
+
+    # the kernels against their plain versions on the last in-loop eval's
+    # inputs (the host-path run's)
+    fed_err = dict.fromkeys(KERNELS, 0.0)
+    with torch.inference_mode():
+        for name in sorted(blocks):
+            blk = blocks[name]
+            x = received[name]
+            if x.shape[0] != TRAIN_BATCH:
+                raise RuntimeError(f"{name} received batch {x.shape[0]}")
+            xn = x.to(blk.dtype).permute(0, 2, 3, 1)
+            bands = K2_BANDS if name.startswith("layer2") else 0
+            err, _ = compare(fb, xn, blk.folded_weights(),
+                             f"{name} (in-loop eval activations)", bands)
+            key = "K2" if bands else "K1"
+            fed_err[key] = max(fed_err[key], err)
+        for i, (uv, feat, size, distance) in enumerate(splats):
+            err = compare_splat(
+                bs, uv, feat, size, distance,
+                f"stage {i // 2 + 1} {'left' if i % 2 == 0 else 'right'} "
+                f"(in-loop eval joints, S {size}, distance {distance})")
+            fed_err["K5"] = max(fed_err["K5"], err)
+    result["fed_max_abs_err"] = {k: fed_err[k] for k in ("K1", "K2", "K5")}
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, fed_err, result
+
+
 def f1_phase(mods):
     """An fp32 trunk under the fused flags serves on the card: the guards
     send the blocks the kernels would take (bf16 only) to the unfused fp32
@@ -1090,20 +1369,25 @@ def main() -> int:
     k5 = splat_phase(bs)
     launches, served_err, worst_mm, latency, metrics = serve_phase(mods)
     launches["T"], train = train_phase(mods)
+    launches["trainer"], fed_err, train["trainer"] = trainer_phase(mods)
+    for key, err in fed_err.items():
+        served_err[key] = max(served_err[key], err)
     f1 = f1_phase(mods)
 
     # times and bound at the path's shape (the identity form for K1 and K2,
     # the layer1 shape for K3, the larger stage for K5); the error is the
-    # worst of that check and the served inputs' check; launches are the
-    # main path's, over A's, B's and C's requests and T's train steps. K4 is
-    # on no path: its entry holds its standalone check and 0 launches.
-    runs = list(CONFIGS) + ["T"]
+    # worst of that check and the served and in-loop eval inputs' checks;
+    # launches are the main path's, over A's, B's and C's requests, T's
+    # train steps and the Trainer's runs. K4 is on no path: its entry holds
+    # its standalone check and 0 launches.
+    runs = list(CONFIGS) + ["T", "trainer"]
+    expected = dict(EXPECTED, trainer=EXPECTED_TRAINER_EVAL)
 
     def entry(key, name, source, replaces, at_shape, **more):
         index = KERNELS.index(key)
-        if (any(EXPECTED[n][index] for n in runs)
+        if (any(expected[n][index] for n in runs)
                 and not all(launches[n][index] for n in runs
-                            if EXPECTED[n][index])):
+                            if expected[n][index])):
             raise RuntimeError(f"{key} is on the main path and was not "
                                "launched there")
         return {

@@ -1,13 +1,16 @@
 """Model configuration of the PyTorch port.
 
-Copies of ``dir_tpu.config.ModelConfig`` and ``TrainConfig`` (same fields,
-same defaults), so that the port never imports the JAX package.
-``DataConfig`` and ``Config`` come with the data slice.
+Copies of ``dir_tpu.config`` (same fields, same defaults; the model
+config has a few port-only kernel fields), so that the port never imports
+the JAX package. ``save_yaml`` writes JSON text, which is valid YAML 1.2:
+the JAX package's ``load_yaml`` reads it, and the port reads it back with
+``json`` alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Tuple
 
 
@@ -95,6 +98,37 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Data pipeline settings (reference: config.py,
+    dataset/dataset_utils.py)."""
+
+    data_dir: str = "./data/interhand2.6m"
+    img_size: int = 256
+    # ImageNet normalization (RGB order).
+    mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
+    std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+    # Augmentation ranges.
+    aug_scale: float = 0.1
+    aug_rot_deg: float = 180.0
+    aug_transl_px: float = 10.0
+    aug_flip: bool = True
+    aug_blur_prob: float = 0.3
+    aug_noise: float = 0.01
+    # Loader threads.
+    num_workers: int = 4
+    # The host decodes JPEGs only; MANO ground truth, augmentation and
+    # normalization run on the device per batch (data/device_pipeline.py).
+    device_pipeline: bool = False
+    # Host-path warp through native/imageops.cpp instead of cv2.
+    native_warp: bool = False
+    # Serve samples from the packed decode-once cache (data/sample_cache.py).
+    packed_cache: bool = False
+    # Ship train batches as uint8 (img/dense/seg) and normalize on the
+    # device (train/steps.py:decode_wire8): the same values, fewer bytes.
+    wire8: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Trainer settings (reference: config.py:13-31, train.py:223-243)."""
 
@@ -126,3 +160,55 @@ class TrainConfig:
     mesh_data_axis: int = 0
     # Compute dtype for the network (MANO + losses stay f32 for parity).
     compute_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    mano_assets: str = "./assets/mano"
+
+
+_SECTIONS = {"model": ModelConfig, "data": DataConfig, "train": TrainConfig}
+
+
+def _to_dict(cfg) -> dict:
+    out = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if dataclasses.is_dataclass(v):
+            v = _to_dict(v)
+        elif isinstance(v, tuple):
+            v = list(v)
+        out[f.name] = v
+    return out
+
+
+def _from_dict(cls, d: dict):
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        if f.name in _SECTIONS:
+            v = _from_dict(_SECTIONS[f.name], v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kwargs[f.name] = v
+    return cls(**kwargs)
+
+
+def save_yaml(cfg: Config, path: str) -> None:
+    """Write the whole config as JSON text (valid YAML 1.2), fields in
+    declaration order."""
+    with open(path, "w") as f:
+        json.dump(_to_dict(cfg), f, indent=2)
+        f.write("\n")
+
+
+def load_yaml(path: str) -> Config:
+    """Read a config written by :func:`save_yaml`; missing keys keep their
+    defaults, unknown keys are ignored."""
+    with open(path) as f:
+        return _from_dict(Config, json.load(f) or {})

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -26,3 +27,26 @@ def index_tensor(values: tuple, device: torch.device) -> torch.Tensor:
     every call, and such a copy first waits for the device to drain."""
     with torch.inference_mode(False):
         return torch.tensor(values, dtype=torch.int64).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def float_constant(values: tuple, device: torch.device) -> torch.Tensor:
+    """A constant fp32 tensor, made once per device (no host copy per
+    call)."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=torch.float32).to(device)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off for matmuls and cuDNN convolutions, restored afterwards:
+    MANO, geometry, the heads and the losses run in full fp32."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

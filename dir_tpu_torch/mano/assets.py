@@ -1,21 +1,26 @@
-"""MANO model assets as tensors: loading, the left-hand fix, and the
-deterministic synthetic stand-in.
+"""MANO model assets as tensors: loading, conversion, the left-hand fix,
+and the deterministic synthetic stand-in.
 
 Counterpart of ``dir_tpu/mano/assets.py``. The licensed MANO files are
-not part of the repository; ``load_mano`` reads the ``.npz`` assets that
-``tools/convert_mano.py`` writes, and ``synthetic_mano`` makes a random
-model with the exact MANO structure, drawing the same numpy random
-numbers as the JAX package so that both build bit-identical arrays from
-one seed.
+not part of the repository; ``convert_mano_pkl`` turns the official
+pickles into ``.npz`` assets without chumpy, ``load_mano`` reads those (or
+a pickle), and ``synthetic_mano`` makes a random model with the exact MANO
+structure, drawing the same numpy random numbers as the JAX package so
+that both build bit-identical arrays from one seed.
 """
 
 from __future__ import annotations
 
+import io
 import os
+import pickle
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+# Kinematic tree of the 16 MANO joints: parents[i] is joint i's parent.
+MANO_PARENTS = (-1, 0, 1, 2, 0, 4, 5, 0, 7, 8, 0, 10, 11, 0, 13, 14)
 
 # Per-level joint indices for level-batched kinematics: 5 fingers x 3.
 LEV1 = (1, 4, 7, 10, 13)
@@ -28,6 +33,8 @@ KIN_REORDER = (0, 1, 6, 11, 2, 7, 12, 3, 8, 13, 4, 9, 14, 5, 10, 15)
 # Fingertip vertex indices appended as joints 16..20.
 TIPS_RIGHT = (745, 317, 444, 556, 673)
 TIPS_LEFT = (745, 317, 445, 556, 673)
+# The data-side MANO uses the right-hand tips for both sides.
+TIPS_DATA = (745, 317, 444, 556, 673)
 
 # Reorder of [16 MANO joints + 5 tips] to the 21-joint convention.
 JOINT_REORDER = (0, 13, 14, 15, 16, 1, 2, 3, 17, 4, 5, 6, 18,
@@ -73,10 +80,80 @@ def _model_from_arrays(arrays: dict, side: str,
     )
 
 
+def _maybe_dense(x) -> np.ndarray:
+    """Densify scipy sparse or chumpy-wrapped arrays."""
+    if hasattr(x, "toarray"):  # scipy sparse (J_regressor)
+        return np.asarray(x.toarray())
+    if hasattr(x, "r"):  # chumpy
+        return np.asarray(x.r)
+    return np.asarray(x)
+
+
+class _ChumpyShim:
+    """Stand-in for chumpy's classes, so that the official MANO pickles
+    load without chumpy. Chumpy objects pickle their instance ``__dict__``;
+    the backing array is recovered from it for the nodes MANO uses (``Ch``
+    over a plain array, ``Select`` over one)."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        self.__dict__.update(state if isinstance(state, dict) else {})
+
+    @property
+    def r(self):
+        d = self.__dict__
+        for key in ("x", "a", "_data"):
+            v = d.get(key)
+            if v is None:
+                continue
+            arr = _maybe_dense(v)
+            if d.get("idxs") is not None and key == "a":
+                # a Select node: gather, then reshape
+                idxs = np.asarray(d["idxs"])
+                return arr.ravel()[idxs.ravel()].reshape(idxs.shape)
+            return arr
+        raise ValueError("cannot recover array from chumpy shim: "
+                         f"keys={list(d.keys())}")
+
+
+class _ManoUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.startswith("chumpy"):
+            return _ChumpyShim
+        return super().find_class(module, name)
+
+
+def _load_raw_pkl(path: str) -> dict:
+    with open(path, "rb") as f:
+        return _ManoUnpickler(io.BytesIO(f.read()), encoding="latin1").load()
+
+
+_PKL_KEYS = ("v_template", "shapedirs", "posedirs", "J_regressor", "weights",
+             "hands_components", "hands_mean")
+
+
+def convert_mano_pkl(pkl_path: str, npz_path: str, side: str) -> None:
+    """Convert an official MANO pickle to the ``.npz`` asset (fp32 arrays,
+    int32 faces, the side)."""
+    data = _load_raw_pkl(pkl_path)
+    out = {k: _maybe_dense(data[k]).astype(np.float32) for k in _PKL_KEYS}
+    out["faces"] = np.asarray(data["f"]).astype(np.int32)
+    out["side"] = np.asarray(side)
+    np.savez(npz_path, **out)
+
+
 def load_mano(path: str, side: str, tips: tuple | None = None) -> ManoModel:
-    """Load a converted ``.npz`` MANO asset."""
-    with np.load(path, allow_pickle=False) as z:
-        arrays = {k: z[k] for k in z.files}
+    """Load a MANO asset: a ``.npz`` from :func:`convert_mano_pkl`, or a
+    raw or plain-numpy ``.pkl``."""
+    if path.endswith(".npz"):
+        with np.load(path, allow_pickle=False) as z:
+            arrays = {k: z[k] for k in z.files}
+    else:
+        raw = _load_raw_pkl(path)
+        arrays = {k: _maybe_dense(raw[k]) for k in _PKL_KEYS}
+        arrays["faces"] = np.asarray(raw["f"])
     return _model_from_arrays(arrays, side, tips)
 
 
@@ -91,19 +168,28 @@ def fix_left_shapedirs(left: ManoModel, right: ManoModel) -> ManoModel:
     return left._replace(shapedirs=shapedirs)
 
 
-def load_mano_pair(assets_dir: str) -> tuple[ManoModel, ManoModel]:
-    """Load (left, right) ``MANO_{LEFT,RIGHT}.npz`` with the left fix."""
+def load_mano_pair(assets_dir: str, tips_style: str = "network"
+                   ) -> tuple[ManoModel, ManoModel]:
+    """Load (left, right) ``MANO_{LEFT,RIGHT}.npz`` (or ``.pkl``) with the
+    left fix. ``tips_style`` "network" takes the side-dependent fingertips
+    of the in-network MANO, "data" the right-hand tips for both sides, as
+    the data-side MANO does."""
     def find(side):
-        p = os.path.join(assets_dir, f"MANO_{side.upper()}.npz")
-        if not os.path.exists(p):
-            raise FileNotFoundError(
-                f"No MANO_{side.upper()}.npz under {assets_dir}; run "
-                "tools/convert_mano.py on the official files, or use "
-                "synthetic_mano().")
-        return p
+        for name in (f"MANO_{side.upper()}.npz", f"MANO_{side.upper()}.pkl"):
+            p = os.path.join(assets_dir, name)
+            if os.path.exists(p):
+                return p
+        raise FileNotFoundError(
+            f"No MANO_{side.upper()}.npz/.pkl under {assets_dir}; run "
+            "tools/convert_mano.py on the official files, or use "
+            "synthetic_mano().")
 
-    left = load_mano(find("left"), "left")
-    right = load_mano(find("right"), "right")
+    if tips_style == "data":
+        tips_l = tips_r = TIPS_DATA
+    else:
+        tips_l, tips_r = TIPS_LEFT, TIPS_RIGHT
+    left = load_mano(find("left"), "left", tips_l)
+    right = load_mano(find("right"), "right", tips_r)
     return fix_left_shapedirs(left, right), right
 
 

@@ -6,6 +6,11 @@ Every function works on a leading hand axis ``h``: the model tensors are
 the pair, this layer writes the hand axis out. The kinematic chain runs
 as three level-batched 4x4 compositions. It runs in fp32 (or wider) and
 expects TF32 matmuls to be off, which is PyTorch's default.
+
+Two APIs share :func:`mano_skin`: the in-network one (6D root, PCA pose,
+quaternion Rodrigues; :func:`mano_forward_pca6d_pair`) and the data-side
+one (a root rotation matrix, PCA or rotation-matrix finger pose, classic
+Rodrigues, translation and scale; :func:`mano_forward_rotmat_pair`).
 """
 
 from __future__ import annotations
@@ -16,8 +21,8 @@ import torch.nn.functional as F
 from dir_tpu_torch.device import index_tensor
 from dir_tpu_torch.mano.assets import JOINT_REORDER, ManoModel
 from dir_tpu_torch.ops.rotation import (batch_rodrigues,
-                                        robust_rot6d_to_rotmat,
-                                        rot6d_to_rotmat)
+                                        robust_rot6d_to_rotmat, rodrigues,
+                                        rot6d_to_rotmat, rotation_project)
 
 
 def _rt_to_se3(rot: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
@@ -35,6 +40,18 @@ def pca_to_axis(model: ManoModel, pca: torch.Tensor,
     if add_mean:
         axis = axis + model.hands_mean[:, None]
     return axis
+
+
+def axis_to_pca(model: ManoModel, axis: torch.Tensor) -> torch.Tensor:
+    """One hand: (B, 45) axis-angle -> (B, 45) PCA coefficients, through
+    the inverse of the full-rank basis."""
+    inv = torch.linalg.inv(model.hands_components)
+    return (axis - model.hands_mean[None]) @ inv
+
+
+def _one(model: ManoModel) -> ManoModel:
+    """One hand's model with a hand axis of 1."""
+    return ManoModel(*(t[None] for t in model))
 
 
 def mano_skin(model: ManoModel, root_rot: torch.Tensor,
@@ -135,8 +152,65 @@ def mano_forward_pca6d(model: ManoModel, pose_coeffs: torch.Tensor,
                        robust_rot: bool = True):
     """One hand: (B, 6 + ncomps), (B, 10) -> verts (B, 778, 3),
     joints (B, 21, 3)."""
-    one = ManoModel(*(t[None] for t in model))
     verts, joints = mano_forward_pca6d_pair(
-        one, pose_coeffs[None], betas[None], center_idx, flat_hand_mean,
-        robust_rot)
+        _one(model), pose_coeffs[None], betas[None], center_idx,
+        flat_hand_mean, robust_rot)
+    return verts[0], joints[0]
+
+
+def mano_forward_rotmat_pair(pair: ManoModel, root_rot: torch.Tensor,
+                             pose: torch.Tensor, shape: torch.Tensor,
+                             trans: torch.Tensor | None = None,
+                             scale: torch.Tensor | None = None,
+                             center_idx: int | None = 9,
+                             use_pca: bool = True):
+    """Data-side MANO forward over a leading hand axis.
+
+    root_rot: (h, B, 3, 3); pose: (h, B, ncomps) PCA coefficients if
+    ``use_pca`` else (h, B, 15, 3, 3) local rotations; shape (h, B, 10);
+    trans (h, B, 3) or None; scale (h, B) or None. The PCA pose goes
+    through the classic Rodrigues formula. Returns verts (h, B, 778, 3),
+    joints (h, B, 21, 3): centred at ``center_idx``, then scaled, then
+    translated."""
+    h, b = root_rot.shape[:2]
+    if use_pca:
+        axis45 = pca_to_axis(pair, pose, add_mean=True)
+        local_rots = rodrigues(axis45.reshape(-1, 3)).reshape(h, b, 15, 3, 3)
+    else:
+        local_rots = pose
+    verts, joints = mano_skin(pair, root_rot, local_rots, shape, center_idx)
+    if scale is not None:
+        verts = verts * scale[..., None, None]
+        joints = joints * scale[..., None, None]
+    if trans is not None:
+        verts = verts + trans[..., None, :]
+        joints = joints + trans[..., None, :]
+    return verts, joints
+
+
+def mano_forward_rotmat(model: ManoModel, root_rot: torch.Tensor,
+                        pose: torch.Tensor, shape: torch.Tensor,
+                        trans: torch.Tensor | None = None,
+                        scale: torch.Tensor | None = None,
+                        center_idx: int | None = 9, use_pca: bool = True):
+    """One hand of :func:`mano_forward_rotmat_pair`: root_rot (B, 3, 3),
+    pose (B, ncomps) or (B, 15, 3, 3), shape (B, 10), trans (B, 3),
+    scale (B,) -> verts (B, 778, 3), joints (B, 21, 3)."""
+    def lift(t):
+        return None if t is None else t[None]
+
+    verts, joints = mano_forward_rotmat_pair(
+        _one(model), root_rot[None], pose[None], shape[None], lift(trans),
+        lift(scale), center_idx, use_pca)
+    return verts[0], joints[0]
+
+
+def mano_forward_rotmats_proj(model: ManoModel, pose_mats: torch.Tensor,
+                              betas: torch.Tensor,
+                              center_idx: int | None = 0):
+    """One hand, rotation-matrix pose: (B, 16, 3, 3) approximate rotations
+    (root first) are projected onto SO(3) by SVD before skinning."""
+    mats = rotation_project(pose_mats)
+    verts, joints = mano_skin(_one(model), mats[None, :, 0],
+                              mats[None, :, 1:], betas[None], center_idx)
     return verts[0], joints[0]

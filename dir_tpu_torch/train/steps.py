@@ -13,14 +13,12 @@ bottleneck kernels are inference-only and never run here.
 
 from __future__ import annotations
 
-import contextlib
-import functools
 from typing import Callable
 
 import torch
 
 from dir_tpu_torch.config import ModelConfig
-from dir_tpu_torch.device import resolve_device
+from dir_tpu_torch.device import float_constant, no_tf32, resolve_device
 from dir_tpu_torch.mano.assets import ManoModel
 from dir_tpu_torch.models.losses import dir_losses, total_loss
 from dir_tpu_torch.train.state import TrainState
@@ -29,14 +27,6 @@ from dir_tpu_torch.train.state import TrainState
 # dir_tpu/data/augment.py has it.
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
-
-
-@functools.lru_cache(maxsize=None)
-def _constant(values: tuple, device: torch.device) -> torch.Tensor:
-    """An fp32 constant tensor, made once per device (no host copy per
-    step)."""
-    with torch.inference_mode(False):
-        return torch.tensor(values, dtype=torch.float32).to(device)
 
 
 def decode_wire8(batch: dict) -> dict:
@@ -51,27 +41,13 @@ def decode_wire8(batch: dict) -> dict:
     img = b["img"]
     if img.dtype == torch.uint8:
         rgb = img.flip(-1).to(torch.float32) / 255.0
-        b["img"] = ((rgb - _constant(IMAGENET_MEAN, img.device))
-                    / _constant(IMAGENET_STD, img.device))
+        b["img"] = ((rgb - float_constant(IMAGENET_MEAN, img.device))
+                    / float_constant(IMAGENET_STD, img.device))
     if "dense" in b and b["dense"].dtype == torch.uint8:
         b["dense"] = b["dense"].to(torch.float32) / 255.0
     if "seg" in b and b["seg"].dtype == torch.uint8:
         b["seg"] = b["seg"].to(torch.int64)
     return b
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    """TF32 off for matmuls and cuDNN convolutions, restored afterwards."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
 
 
 def _to_device(batch: dict, dev: torch.device) -> dict:
@@ -154,7 +130,7 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     def step(state: TrainState, batch: dict):
         batch = _to_device(batch, dev)
         model.train()
-        with _no_tf32():
+        with no_tf32():
             if grad_accum > 1:
                 return accum_step(state, batch)
             if unroll == 1:
@@ -181,7 +157,7 @@ def make_eval_step(model, mano_left: ManoModel, mano_right: ManoModel, *,
     def step(state, img) -> dict:
         net = getattr(state, "model", state)
         net.eval()
-        with torch.inference_mode(), _no_tf32():
+        with torch.inference_mode(), no_tf32():
             return net(torch.as_tensor(img).to(dev, torch.float32),
                        mano_left, mano_right)
 

@@ -767,3 +767,121 @@ def test_fp32_with_config_c_serves_on_card():
     after = (q.launches, Bottleneck.fp32_unfused_runs)
     assert tuple(a - b for a, b in zip(after, before)) == (0, 2)
     _assert_outputs_close(out, make_infer(plain, ml, mr)(img), 1e-5)
+
+
+# -- the data pipeline and the Trainer on the card ---------------------------
+
+def _synthetic_split(tmp_path, n: int, img_size: int):
+    from dir_tpu_torch.data import synthetic
+    from dir_tpu_torch.serve import flagship_mano
+
+    ml, mr = flagship_mano()
+    synthetic.generate(str(tmp_path), ml, mr, split="test", num_samples=n,
+                       img_size=img_size)
+    return str(tmp_path), ml, mr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("train", [False, True])
+def test_device_pipeline_on_card_matches_cpu(tmp_path, train):
+    """The on-device preprocessing on the card against the same call on
+    the CPU with the same draws (made once on the CPU). Bounds as the CPU
+    tests hold the port against the JAX package: the image 1e-3, dense
+    3e-4, labels 1e-5, at most 1e-4 of the seg labels differing (a warped
+    mask's channels can tie within rounding)."""
+    dev = _cuda_or_skip()
+    from dir_tpu_torch.data import device_pipeline as tdp
+    from dir_tpu_torch.data.loader import collate
+
+    data_dir, ml, mr = _synthetic_split(tmp_path, 4, 128)
+    raw = collate([tdp.RawInterHandDataset(data_dir, "test")[i]
+                   for i in range(4)])
+    draws = tdp.draw_augmentation(torch.Generator().manual_seed(1), 4,
+                                  raw["img"].shape[1:]) if train else None
+    want = tdp.make_preprocess_fn(ml, mr, img_size=128, train=train,
+                                  device="cpu")(raw, draws=draws)
+    got = tdp.make_preprocess_fn(ml, mr, img_size=128, train=train,
+                                 device=dev)(
+        raw, draws=None if draws is None else {k: v.to(dev)
+                                               for k, v in draws.items()})
+    tol = {"img": 1e-3, "dense": 3e-4}
+    for k, w in want.items():
+        g = got[k]
+        assert g.device.type == "cuda" and g.shape == w.shape, k
+        if k == "seg":
+            assert float((g.cpu() != w).float().mean()) <= 1e-4
+        else:
+            err = float((g.cpu().double() - w.double()).abs().max())
+            assert err <= tol.get(k, 1e-5), (k, err)
+
+
+@pytest.mark.gpu
+def test_loader_pins_batches_for_the_card(tmp_path):
+    """With pin_memory the batches are pinned tensors holding the numpy
+    loader's values; the copy to the card is asynchronous."""
+    dev = _cuda_or_skip()
+    from dir_tpu_torch.data.device_pipeline import RawInterHandDataset
+    from dir_tpu_torch.data.loader import BatchLoader
+
+    data_dir, _, _ = _synthetic_split(tmp_path, 3, 64)
+    ds = RawInterHandDataset(data_dir, "test", img_size=64)
+    kw = dict(batch_size=2, drop_last=False, pad_last=True, num_threads=2)
+    pinned = list(BatchLoader(ds, pin_memory=True, **kw))
+    plain = list(BatchLoader(ds, **kw))
+    assert [int(b["_valid"]) for b in pinned] == [2, 1]
+    for p, q in zip(pinned, plain):
+        for k, v in q.items():
+            if k == "_valid":
+                continue
+            assert isinstance(p[k], torch.Tensor) and p[k].is_pinned(), k
+            np.testing.assert_array_equal(p[k].numpy(), v)
+            on_card = p[k].to(dev, non_blocking=True)
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(on_card.cpu().numpy(), v)
+
+
+@pytest.mark.gpu
+def test_trainer_evaluate_on_card_launches_the_kernels(tmp_path):
+    """Trainer.evaluate() on the card in a bf16 model with configuration
+    B's flags (backbone (3, 4, 1, 1), so that the fused guards take
+    layer1_1-2 and layer2_1-3): one eval batch launches K1 2 times, K2 3
+    times and K5 4 times, and gives a finite summary; one train step
+    launches K5 4 times and nothing else."""
+    dev = _cuda_or_skip()
+    from dir_tpu_torch.config import (Config, DataConfig, ModelConfig,
+                                      TrainConfig)
+    from dir_tpu_torch.data import synthetic
+    from dir_tpu_torch.serve import CONFIG_B, flagship_mano
+    from dir_tpu_torch.train.trainer import Trainer
+
+    ml, mr = flagship_mano()
+    data_dir = str(tmp_path / "data")
+    for split, n in (("train", 2), ("test", 2)):
+        synthetic.generate(data_dir, ml, mr, split=split, num_samples=n)
+    cfg = Config(
+        model=ModelConfig(backbone_layers=(3, 4, 1, 1), dtype="bfloat16",
+                          fused_bottleneck_eval=True, **CONFIG_B),
+        data=DataConfig(data_dir=data_dir, device_pipeline=True,
+                        num_workers=2),
+        train=TrainConfig(batch_size=2, total_epochs=1, print_every=1,
+                          draw_every=0, output_dir=str(tmp_path / "out")))
+    trainer = Trainer(cfg, ml, mr, device=dev)
+    trainer.make_data()
+    trainer.make_model()
+    f = fb.fused_bottleneck_infer
+
+    def counts():
+        return (f.launches, f.streamed_launches, bs.bone_splat.launches)
+
+    before = counts()
+    summary = trainer.evaluate()
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 3, 4)
+    assert all(np.isfinite(v) for v in summary.values())
+    before = counts()
+    batch = next(iter(trainer.train_loader))
+    dev_batch = trainer.preprocess_train(batch, trainer.aug_generator)
+    trainer.state, loss = trainer.train_step(trainer.state, dev_batch)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 4)
+    assert all(bool(torch.isfinite(v)) for v in loss.values())
