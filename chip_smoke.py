@@ -32,6 +32,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      them at batch 64, compare each final stage with the port's fp32 forward
      on the card (also through the port's batch_metrics), and time the
      requests of all three configurations;
+  4b. export B and C (calibrated above) as serving artifacts with a
+     symbolic batch (``serve.export_program``: the kernels are the
+     ``torch.ops.dir_tpu.*`` ops the graphs name: B fused_bottleneck x 5
+     and bone_splat x 4, C fused_bottleneck_int8 x 5), write them under
+     build/, load B in a fresh process that must not import the models,
+     serve B through ``apps/serve_http.py`` (micro-batcher of 8, buckets 1
+     and 8) and C (single flight) on a local port: batch 1, batch 8 and 8
+     concurrent batch-1 requests, every response held against the live
+     model, the kernels' launches per dispatch from their counters, the
+     median HTTP latency per request shape and the CUDA operations per
+     request of artifact and live model; then the infer app on one seeded
+     image (full depth, fp32);
   5. train the full-width flagship on the card: configuration T (bf16
      trunk, B's decoder flags, so K5 runs on each step's forward; batch 64,
      bench.py:bench_train's seeded batch), a few AdamW steps on the
@@ -53,11 +65,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      batch K1 2, K2 3 and K5 4 times. K1, K2 and K5 are held against their
      plain versions on what the last in-loop eval fed them. Prints ms per
      step, the loader's wait and share, ms per eval batch, the losses, the
-     summaries and peak memory;
+     summaries and peak memory; then the train CLI (``apps/train.py``) for
+     one epoch of 2 steps of T's flags on the same split;
   7. serve an fp32 trunk under the fused flags (the bf16 kernels' and C's)
      at cut depth: the kernels take bf16 only, so the guards route the
      blocks unfused;
-  8. print the ``kernels`` line, then the one-line result.
+  8. print the ``kernels`` line (launches of the main path: A, B and C
+     served, the B and C artifacts over HTTP, T and the Trainer), then the
+     one-line result.
 """
 
 import collections
@@ -159,6 +174,25 @@ GRAD_FLOOR = 1e-4
 # batch), epochs before the resume and after it
 TRAINER_TRAIN, TRAINER_TEST = 128, 64
 TRAINER_EPOCHS, TRAINER_RESUMED_EPOCHS = 2, 3
+# The serving artifacts: the kernel ops each exported graph names
+ARTIFACT_OPS = {
+    "B": {"fused_bottleneck": 5, "fused_bottleneck_int8": 0,
+          "fused_stem_bottleneck": 0, "bone_splat": 4},
+    "C": {"fused_bottleneck": 0, "fused_bottleneck_int8": 5,
+          "fused_stem_bottleneck": 0, "bone_splat": 0}}
+# HTTP responses against the live model on the same images at the batch
+# size they were dispatched at: the final stage in mm and the seg and dense
+# maps. The artifact runs the live model's ops on the same tensors: measured
+# 0 for both artifacts over three calls, at batch 1, 8 and in B's
+# micro-batches, whatever a request's position or neighbours in its batch
+# (NVIDIA H100 80GB HBM3, 700 W). The same image at batch 1 and in a batch
+# of 8 differs by up to 5.9 mm and 3.5 on the maps (bf16 under other cuDNN
+# algorithms), two images by at least 11.6 mm and 27.9: the bounds catch a
+# wrong reference size or a row given to another request.
+HTTP_TOL_MM = 1e-3
+HTTP_TOL_MAP = 1e-4
+HTTP_REPS = 5
+HTTP_WINDOW_MS = 3.0
 # The fp32 trunk under the fused flags against the same model without them:
 # the same fp32 computation, up to cuDNN's choice of algorithm.
 F1_RTOL = 1e-5
@@ -806,7 +840,9 @@ def serve_phase(mods):
                 f"{latency[name][b]:.3f} ms, min {times[0]:.3f}, max "
                 f"{times[-1]:.3f} over {LATENCY_REPS} "
                 f"({b / latency[name][b] * 1e3:.1f} img/s at the median)")
-    return launches, served_err, worst, latency, metrics
+    live = {"models": models, "infers": infers, "images": images,
+            "mano": (mano_l, mano_r)}
+    return launches, served_err, worst, latency, metrics, live
 
 
 def batch_loss(model, batch, mano_l, mano_r) -> float:
@@ -1263,8 +1299,378 @@ def trainer_phase(mods):
                 f"(in-loop eval joints, S {size}, distance {distance})")
             fed_err["K5"] = max(fed_err["K5"], err)
     result["fed_max_abs_err"] = {k: fed_err[k] for k in ("K1", "K2", "K5")}
-    shutil.rmtree(root, ignore_errors=True)
+    for name in os.listdir(root):      # the split stays for the train CLI
+        if name != "data":
+            shutil.rmtree(os.path.join(root, name), ignore_errors=True)
     return launches, fed_err, result
+
+
+def cuda_ops(fn) -> int:
+    """Device operations (kernels, copies, fills) that one call of ``fn``
+    ran, from a ``torch.profiler`` trace of the card; 0 where the trace saw
+    none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def post(url: str, img: np.ndarray) -> dict:
+    """One ``POST /infer`` with an .npy body; the .npz response's arrays."""
+    import io
+    import urllib.request
+
+    buf = io.BytesIO()
+    np.save(buf, img)
+    with urllib.request.urlopen(url + "/infer", buf.getvalue(),
+                                timeout=120) as r:
+        return dict(np.load(io.BytesIO(r.read())))
+
+
+def stats(url: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/stats", timeout=30) as r:
+        return json.loads(r.read())
+
+
+def response_err(resp: dict, out: dict, rows=slice(None)) -> tuple:
+    """Max abs difference of an HTTP response from the live model's outputs
+    (rows ``rows`` of them): the final stage's joints, meshes and offset in
+    mm, and the seg and dense maps."""
+    fin = out["stages"][-1]
+    keys = ("mesh_xyz_left", "mesh_xyz_right", "joint_xyz_left",
+            "joint_xyz_right", "offset")
+    mm = max(float(np.abs(resp[k] - fin[f"pd_{k}"][rows].float().cpu()
+                          .numpy()).max()) for k in keys) * 1e3
+    maps = max(float(np.abs(resp[k] - out[k][rows].float().cpu().numpy())
+                     .max()) for k in ("seg", "dense"))
+    return mm, maps
+
+
+def as_response(out: dict) -> dict:
+    """A live model's outputs as ``/infer --full`` returns them."""
+    fin = out["stages"][-1]
+    keys = ("mesh_xyz_left", "mesh_xyz_right", "joint_xyz_left",
+            "joint_xyz_right", "offset")
+    resp = {k: fin[f"pd_{k}"] for k in keys}
+    resp.update(seg=out["seg"], dense=out["dense"])
+    return {k: v.float().cpu().numpy() for k, v in resp.items()}
+
+
+def http_session(mods, path: str, name: str, live_infer, images: dict,
+                 microbatch: int, window_ms: float, buckets) -> dict:
+    """Serve the artifact at ``path`` through ``apps/serve_http.py``'s
+    server on a free local port, with its micro-batcher; POST batch 1, batch
+    8 and 8 concurrent batch-1 requests (repeated for latency); hold every
+    response against ``live_infer`` on the same images and every dispatch's
+    kernel launches against configuration ``name``'s. Returns the record,
+    with the launches of the whole session."""
+    import threading
+
+    from dir_tpu_torch.apps import serve_http
+
+    t = time.monotonic()
+    srv = serve_http.make_server(path, "127.0.0.1", 0, full=True,
+                                 max_batch=microbatch, window_ms=window_ms,
+                                 buckets=buckets)
+    load_s = time.monotonic() - t
+    t = time.monotonic()
+    serve_http.warmup(srv.infer, buckets or (1, 8))
+    warm_s = time.monotonic() - t
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    record = {"load_s": load_s, "warmup_s": warm_s, "err_mm": 0.0,
+              "err_maps": 0.0, "latency_ms": {}, "per_dispatch": {}}
+    try:
+        with torch.inference_mode():
+            ref = {b: live_infer(images[b]) for b in (1, 8)}
+            # a single-flight server answers each of a burst's requests
+            # alone: its reference is the live model on the image alone
+            alone = [live_infer(images[8][i:i + 1]) for i in range(8)]
+            torch.cuda.synchronize()
+        # bf16 results depend on the batch size a forward runs at (cuDNN's
+        # algorithms and tiles): the live model's own spread, and how far
+        # apart two images' outputs lie
+        record["live_batch_spread"] = max(
+            response_err(as_response(alone[i]), ref[8], slice(i, i + 1))
+            for i in range(8))
+        record["live_image_gap"] = min(
+            response_err(as_response(alone[i]), ref[8], slice(j, j + 1))
+            for i in range(8) for j in range(8) if i != j)
+        say(f"artifact {name}: the live model on an image alone against "
+            f"its row of batch 8: max {record['live_batch_spread']} (mm, "
+            "seg/dense); two different images' outputs: at least "
+            f"{record['live_image_gap']}")
+        if record["live_image_gap"][0] < 100 * HTTP_TOL_MM:
+            raise RuntimeError("two images' outputs lie too close for the "
+                               "response check to tell them apart")
+
+        def check(resp, *refs):
+            """The response against each (outputs, rows) reference; the
+            closest one counts."""
+            mm, maps = min(response_err(resp, out, rows) for out, rows in refs)
+            record["err_mm"] = max(record["err_mm"], mm)
+            record["err_maps"] = max(record["err_maps"], maps)
+            by_shape[shape] = tuple(max(a, b) for a, b in zip(
+                by_shape.get(shape, (0.0, 0.0)), (mm, maps)))
+
+        def burst():
+            """8 concurrent batch-1 requests, image i of batch 8 each."""
+            got, lat = [None] * 8, [0.0] * 8
+
+            def one(i):
+                t0 = time.perf_counter()
+                got[i] = post(url, images[8][i:i + 1])
+                lat[i] = (time.perf_counter() - t0) * 1e3
+
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(8)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+            # a request the micro-batcher dispatched alone ran at batch 1,
+            # one in a group at its bucket, 8: its reference is the live
+            # model at that batch size (in a batch of 8 a row's result
+            # does not depend on its neighbours or its position)
+            for i in range(8):
+                if microbatch:
+                    check(got[i], (ref[8], slice(i, i + 1)),
+                          (alone[i], slice(None)))
+                else:
+                    check(got[i], (alone[i], slice(None)))
+            return lat
+
+        by_shape = {}
+        reset_counts(mods)
+        session_start = kernel_counts(mods)
+        shapes = (("batch 1", lambda: [post(url, images[1])]),
+                  ("batch 8", lambda: [post(url, images[8])]),
+                  ("8 concurrent batch 1", burst))
+        for shape, run in shapes:
+            before_stats = stats(url)
+            before = kernel_counts(mods)
+            times = []
+            for _ in range(HTTP_REPS):
+                t0 = time.perf_counter()
+                out = run()
+                if shape == "8 concurrent batch 1":
+                    times += out
+                else:
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    check(out[0], (ref[1 if shape == "batch 1" else 8],
+                                   slice(None)))
+            after = stats(url)
+            dispatches = after["dispatches"] - before_stats["dispatches"]
+            images_n = after["images"] - before_stats["images"]
+            launched = tuple(a - b for a, b in zip(kernel_counts(mods),
+                                                   before))
+            per = tuple(n / dispatches for n in launched)
+            times.sort()
+            record["latency_ms"][shape] = times[len(times) // 2]
+            record["per_dispatch"][shape] = {
+                "launches": per, "dispatches": dispatches,
+                "avg_batch": images_n / dispatches}
+            say(f"artifact {name} over HTTP, {shape}: median "
+                f"{times[len(times) // 2]:.3f} ms per request (min "
+                f"{times[0]:.3f}, max {times[-1]:.3f}, {len(times)} "
+                f"requests); {dispatches} dispatches, avg_batch "
+                f"{images_n / dispatches:.2f}; launches per dispatch of "
+                f"{KERNELS} {per}")
+            if per != tuple(float(n) for n in EXPECTED[name]):
+                raise RuntimeError(
+                    f"artifact {name}, {shape}: {KERNELS} ran {per} times "
+                    f"a dispatch, expected {EXPECTED[name]}")
+        record["launches"] = tuple(a - b for a, b in zip(kernel_counts(mods),
+                                                         session_start))
+        record["stats"] = stats(url)
+        record["err_by_shape"] = by_shape
+        # the live model against itself across the session: cuDNN may
+        # choose another algorithm for a shape as the free memory changes
+        with torch.inference_mode():
+            record["live_drift"] = {
+                b: response_err(as_response(live_infer(images[b])), ref[b])
+                for b in (1, 8)}
+        say(f"artifact {name} over HTTP: max abs err by request shape (mm, "
+            f"seg/dense) {by_shape}; the live model against itself at the "
+            f"end of the session {record['live_drift']}")
+        # CUDA operations a request runs, artifact against live model (C's
+        # unfused int8 convs fold and quantize their weights on every call
+        # in both)
+        record["cuda_ops_per_request"] = {b: {
+            "artifact": cuda_ops(lambda: srv.infer(images[b])),
+            "live": cuda_ops(lambda: live_infer(images[b]))} for b in (1, 8)}
+        say(f"artifact {name}: CUDA operations per request (torch.profiler; "
+            f"0 = the trace saw none) {record['cuda_ops_per_request']}")
+        say(f"artifact {name} over HTTP: max abs err against the live model "
+            f"{record['err_mm']:.6f} mm (tolerance {HTTP_TOL_MM} mm), seg "
+            f"and dense {record['err_maps']:.6f} (tolerance {HTTP_TOL_MAP}); "
+            f"/stats {record['stats']}")
+        if record["err_mm"] > HTTP_TOL_MM or record["err_maps"] > HTTP_TOL_MAP:
+            raise RuntimeError(f"artifact {name}: a response is off the live "
+                               "model")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        if srv.batcher is not None:
+            srv.batcher.stop()
+        thread.join(timeout=30)
+    return record
+
+
+def load_in_subprocess(root: str, path: str, live, images):
+    """Start a fresh process that loads configuration B's artifact with no
+    model code and answers one batch-1 request, against the live model's
+    answer; it prints one JSON line."""
+    with torch.inference_mode():
+        want = live["infers"]["B"](images[1])["stages"][-1][
+            "pd_mesh_xyz_left"].float().cpu().numpy()
+    np.save(os.path.join(root, "img1.npy"), images[1])
+    np.save(os.path.join(root, "want1.npy"), want)
+    code = "\n".join([
+        "import json, sys, time",
+        "import numpy as np, torch",
+        f"sys.path.insert(0, {REPO!r})",
+        "from dir_tpu_torch import serve",
+        "t = time.monotonic()",
+        f"fn = serve.load({path!r})",
+        "load_s = time.monotonic() - t",
+        f"img = np.load({os.path.join(root, 'img1.npy')!r})",
+        "got = fn(img)['stages'][-1]['pd_mesh_xyz_left'].float().cpu()",
+        f"want = np.load({os.path.join(root, 'want1.npy')!r})",
+        "print(json.dumps({'load_s': load_s, 'err_mm': float(np.abs("
+        "got.numpy() - want).max()) * 1e3, 'finite': bool(torch.isfinite("
+        "got).all()), 'models': sorted(k for k in sys.modules if "
+        "k.startswith('dir_tpu_torch.models')), 'jax': 'jax' in "
+        "sys.modules}))"])
+    return subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def artifact_phase(mods, live):
+    """Configurations B and C exported as serving artifacts (symbolic
+    batch, on the card) and served: the graphs' kernel ops, a subprocess
+    that loads B with no model code, B over HTTP with the micro-batcher, C
+    over HTTP, the CUDA operations per request of artifact and live model,
+    and the infer app."""
+    from dir_tpu_torch import serve
+    from dir_tpu_torch.apps import infer as infer_app
+
+    root = os.path.join(REPO, "build", "chip_smoke_artifacts")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    mano_l, mano_r = live["mano"]
+    images = live["images"]
+    result, paths = {}, {}
+    sub = None
+    for name in "BC":
+        t = time.monotonic()
+        program = serve.export_program(live["models"][name], mano_l, mano_r)
+        torch.cuda.synchronize()
+        export_s = time.monotonic() - t
+        counts = serve.op_counts(program)
+        t = time.monotonic()
+        blob = serve.serialize(program)
+        paths[name] = os.path.join(root, f"{name}.pt2")
+        serve.save(paths[name], blob)
+        result[name] = {"export_s": export_s,
+                        "save_s": time.monotonic() - t, "bytes": len(blob),
+                        "ops": counts, "graph_nodes": len(program.graph.nodes)}
+        say(f"artifact {name}: exported in {export_s:.1f} s (symbolic batch), "
+            f"serialized in {result[name]['save_s']:.1f} s, {len(blob)} "
+            f"bytes, {len(program.graph.nodes)} graph nodes; kernel ops "
+            f"named: {counts}")
+        if counts != ARTIFACT_OPS[name]:
+            raise RuntimeError(f"artifact {name} names {counts}, expected "
+                               f"{ARTIFACT_OPS[name]}")
+        del program, blob
+        if sub is None:       # loads B while C is exported
+            sub = load_in_subprocess(root, paths["B"], live, images)
+    try:
+        out_s, err_s = sub.communicate(timeout=600)
+    finally:
+        if sub.poll() is None:
+            sub.kill()
+            sub.wait()
+    if sub.returncode != 0:
+        raise RuntimeError(f"the artifact subprocess failed: {err_s[-4000:]}")
+    loaded = json.loads(out_s.strip().splitlines()[-1])
+    say(f"artifact B in a fresh process: loaded in {loaded['load_s']:.1f} s, "
+        f"batch 1 against the live model {loaded['err_mm']:.6f} mm, model "
+        f"modules imported {loaded['models']}, jax imported "
+        f"{loaded['jax']}")
+    if (loaded["models"] or loaded["jax"] or not loaded["finite"]
+            or loaded["err_mm"] > HTTP_TOL_MM):
+        raise RuntimeError(f"the artifact subprocess: {loaded}")
+    result["subprocess"] = loaded
+
+    for name, microbatch, buckets in (("B", 8, (1, 8)), ("C", 0, ())):
+        result[name]["http"] = http_session(
+            mods, paths[name], name, live["infers"][name], images,
+            microbatch, HTTP_WINDOW_MS, buckets)
+        result[f"launches {name}"] = result[name]["http"].pop("launches")
+
+    for path in paths.values():
+        os.remove(path)
+
+    # the infer app, full depth at fp32, on one seeded image
+    out_dir = os.path.join(root, "infer")
+    img_path = os.path.join(root, "crop.png")
+    import cv2
+    cv2.imwrite(img_path, (np.random.RandomState(2).rand(256, 256, 3) * 255)
+                .astype(np.uint8))
+    t = time.monotonic()
+    final = infer_app.main(["--image", img_path, "--model", "random",
+                            "--synthetic_mano", "--out", out_dir])
+    missing = [f for f in infer_app.OUTPUTS
+               if not os.path.getsize(os.path.join(out_dir, f))]
+    if missing or not all(np.isfinite(v).all() for v in final.values()):
+        raise RuntimeError(f"the infer app: empty {missing} or non-finite")
+    result["infer_app_s"] = time.monotonic() - t
+    say(f"infer app: {sorted(os.listdir(out_dir))} in "
+        f"{result['infer_app_s']:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
+def train_cli_phase() -> dict:
+    """``apps/train.py`` on the Trainer phase's synthetic split: one epoch
+    of 2 steps of configuration T's flags, with its in-loop eval."""
+    from dir_tpu_torch.apps import train as train_app
+
+    fb, q8, st, bs = (sys.modules[f"dir_tpu_torch.ops.{m}"] for m in (
+        "fused_bottleneck", "fused_bottleneck_int8", "fused_stem_bottleneck",
+        "bone_splat"))
+    root = os.path.join(REPO, "build", "chip_smoke_trainer")
+    reset_counts((fb, q8, st, bs))
+    t = time.monotonic()
+    best = train_app.main([
+        "--data_dir", os.path.join(root, "data"), "--synthetic_mano",
+        "--output", os.path.join(root, "cli"), "--batch_size",
+        str(TRAIN_BATCH), "--epochs", "1", "--dtype", "bfloat16",
+        "--bone_splat", "--fused_bottleneck", "--fused_l2_bands", "4"])
+    torch.cuda.synchronize()
+    launches = kernel_counts((fb, q8, st, bs))
+    seconds = time.monotonic() - t
+    shutil.rmtree(root, ignore_errors=True)
+    # the steps, the one in-loop eval batch and the overlay dump's eval
+    # forward at step 0
+    steps = TRAINER_TRAIN // TRAIN_BATCH
+    want = tuple(steps * t + 2 * e for t, e in zip(EXPECTED["T"],
+                                                   EXPECTED_TRAINER_EVAL))
+    say(f"train CLI: one epoch of {steps} steps and its eval in "
+        f"{seconds:.1f} s, best MPJPE {best:.4f} mm; launches of {KERNELS} "
+        f"{launches} (expected {want})")
+    if launches != want or not np.isfinite(best):
+        raise RuntimeError("the train CLI did not run as configured")
+    return {"seconds": seconds, "best_mm": best, "launches": launches}
 
 
 def f1_phase(mods):
@@ -1367,9 +1773,15 @@ def main() -> int:
     k3 = int8_phase(q8, quant)
     k4 = stem_phase(st)
     k5 = splat_phase(bs)
-    launches, served_err, worst_mm, latency, metrics = serve_phase(mods)
+    launches, served_err, worst_mm, latency, metrics, live = serve_phase(mods)
+    artifact = artifact_phase(mods, live)
+    for name in "BC":
+        launches[f"artifact {name}"] = artifact.pop(f"launches {name}")
+    del live
+    torch.cuda.empty_cache()
     launches["T"], train = train_phase(mods)
     launches["trainer"], fed_err, train["trainer"] = trainer_phase(mods)
+    artifact["train_cli"] = train_cli_phase()
     for key, err in fed_err.items():
         served_err[key] = max(served_err[key], err)
     f1 = f1_phase(mods)
@@ -1380,8 +1792,9 @@ def main() -> int:
     # launches are the main path's, over A's, B's and C's requests, T's
     # train steps and the Trainer's runs. K4 is on no path: its entry holds
     # its standalone check and 0 launches.
-    runs = list(CONFIGS) + ["T", "trainer"]
-    expected = dict(EXPECTED, trainer=EXPECTED_TRAINER_EVAL)
+    runs = list(CONFIGS) + ["artifact B", "artifact C", "T", "trainer"]
+    expected = dict(EXPECTED, trainer=EXPECTED_TRAINER_EVAL,
+                    **{f"artifact {n}": EXPECTED[n] for n in "BC"})
 
     def entry(key, name, source, replaces, at_shape, **more):
         index = KERNELS.index(key)
@@ -1428,6 +1841,7 @@ def main() -> int:
         f"vs fp32 through batch_metrics {metrics}")
     print(json.dumps({"train": train, "fp32_fused_flags_rel_err": f1}),
           flush=True)
+    print(json.dumps({"artifact": artifact}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

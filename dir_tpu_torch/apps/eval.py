@@ -9,8 +9,8 @@ Usage:
 
 ``--model`` takes a port checkpoint (``<ckpt_dir>/<name>``, the
 ``<name>.pt`` that the port's Trainer writes, or a checkpoint directory,
-whose ``latest`` is read) or ``random`` (seeded random weights, for smoke
-runs). Prints the metric block and a ``SUMMARY {json}`` line and writes
+whose ``latest`` is read), the reference's released ``.pth`` or ``random``
+(seeded random weights, for smoke runs). Prints the metric block and a ``SUMMARY {json}`` line and writes
 the per-sample error dumps. With ``--resume_every N`` the accumulators are
 saved every N batches to ``<out>/eval_resume.<config hash>.npz``, and a
 rerun with the same configuration resumes from there. Runs on CUDA unless
@@ -81,19 +81,6 @@ def parse_args(argv=None):
     return opt
 
 
-def _checkpoint_weights(path: str):
-    """The model state_dict of a port checkpoint given as
-    ``<ckpt_dir>/<name>``, ``<ckpt_dir>/<name>.pt`` or ``<ckpt_dir>``."""
-    from dir_tpu_torch.train import checkpoint as ckpt
-
-    if os.path.isdir(path):
-        return ckpt.load_checkpoint_weights(path, "latest")
-    if path.endswith(".pt"):
-        path = path[:-3]
-    return ckpt.load_checkpoint_weights(os.path.dirname(path) or ".",
-                                        os.path.basename(path))
-
-
 def main(argv=None) -> dict:
     opt = parse_args(argv)
 
@@ -106,11 +93,10 @@ def main(argv=None) -> dict:
     from dir_tpu_torch.mano.assets import (fix_left_shapedirs, load_mano_pair,
                                            synthetic_mano)
     from dir_tpu_torch.models.dir import DIR
-    from dir_tpu_torch.serve import (calibrate_static_scales, make_infer,
-                                     random_init_)
+    from dir_tpu_torch.serve import calibrate_static_scales, make_infer
     from dir_tpu_torch.train import evaluate
+    from dir_tpu_torch.train.checkpoint import load_model_weights
     from dir_tpu_torch.utils.logger import setup_logger
-    from dir_tpu_torch.weights import adapt_stem_s2d
 
     dev = resolve_device(opt.device)
     logger = setup_logger(name="dir_tpu_torch.eval")
@@ -133,15 +119,8 @@ def main(argv=None) -> dict:
                       quant_fused=opt.quant_fused,
                       quant_fused_l2_bands=opt.quant_fused_l2_bands)
     model = DIR(cfg)
-    if opt.model == "random":
-        logger.info("random-init smoke evaluation")
-        random_init_(model, seed=0)
-    else:
-        logger.info("loading trainer checkpoint %s", opt.model)
-        sd = _checkpoint_weights(opt.model)
-        if cfg.backbone_stem == "s2d":
-            sd = adapt_stem_s2d(sd)
-        model.load_state_dict(sd, strict=True)
+    logger.info("weights: %s (%s)", load_model_weights(model, opt.model),
+                opt.model)
     model = model.to(dev).eval()
     mano_l, mano_r = mano_l.to(dev), mano_r.to(dev)
 

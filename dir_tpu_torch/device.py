@@ -20,19 +20,39 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-@functools.lru_cache(maxsize=None)
+def _tracing() -> bool:
+    """Whether a fake-tensor trace (``torch.export``, AOT autograd) is
+    running: a constant kept from real tensors must not enter it."""
+    return torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
 def index_tensor(values: tuple, device: torch.device) -> torch.Tensor:
     """A constant int64 index tensor, made once per device. Indexing a CUDA
     tensor with a Python list copies the list from pageable host memory on
-    every call, and such a copy first waits for the device to drain."""
+    every call, and such a copy first waits for the device to drain. Under
+    a fake-tensor trace it is made in the trace instead."""
+    if _tracing():
+        return torch.tensor(values, dtype=torch.int64, device=device)
+    return _index_tensor(values, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _index_tensor(values: tuple, device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):
         return torch.tensor(values, dtype=torch.int64).to(device)
 
 
-@functools.lru_cache(maxsize=None)
 def float_constant(values: tuple, device: torch.device) -> torch.Tensor:
     """A constant fp32 tensor, made once per device (no host copy per
-    call)."""
+    call); under a fake-tensor trace it is made in the trace instead."""
+    if _tracing():
+        return torch.tensor(values, dtype=torch.float32, device=device)
+    return _float_constant(values, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _float_constant(values: tuple, device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):
         return torch.tensor(values, dtype=torch.float32).to(device)
 

@@ -18,8 +18,8 @@ import torch.nn.functional as F
 
 from dir_tpu_torch.models.layers import conv2d
 from dir_tpu_torch.ops.fused_bottleneck import fold_bn, fused_bottleneck_infer
-from dir_tpu_torch.ops.fused_bottleneck_int8 import (
-    Operands, fused_bottleneck_int8_infer, kernel_operands, launch)
+from dir_tpu_torch.ops import fused_bottleneck_int8 as q8
+from dir_tpu_torch.ops.fused_bottleneck_int8 import Operands, kernel_operands
 from dir_tpu_torch.ops.quant import (ActAmax, module_act_scale,
                                      module_quant_conv, quant_conv)
 
@@ -155,6 +155,14 @@ class Bottleneck(nn.Module):
         if self.quant_stats.calibrating:
             raise RuntimeError("K3's operands are not made while "
                                "calibrating")
+        if torch.compiler.is_exporting():
+            # the parameters are fake while a graph is exported: the
+            # operands kept from a forward on the real ones become the
+            # graph's constants
+            if self._k3_cache is None:
+                raise RuntimeError("K3's operands are made by a forward "
+                                   "before the model is exported")
+            return self._k3_cache[2]
         try:
             key = [(t, t.data_ptr(), t._version)
                    for t in self._k3_sources()]
@@ -192,9 +200,9 @@ class Bottleneck(nn.Module):
         # reduction over the whole batch), never while calibrating (the
         # unfused route records the maxes), stride 1, >= 128 input channels;
         # layer1 at >= 4096 positions, layer2 through quant_fused_l2_bands.
-        # On the card it launches on the block's kept operands; on the CPU
-        # the wrapper runs the plain version. A block whose activations the
-        # kernel does not take (kernel_takes) runs the unfused int8 route.
+        # It runs the op on the block's kept operands: K3 on the card, its
+        # plain version on the CPU. A block whose activations the kernel
+        # does not take (kernel_takes) runs the unfused int8 route.
         spatial = x.shape[2] * x.shape[3]
         fused = (self.quant_fused and self.quant_static and self.stride == 1
                  and x.shape[1] >= 128 and not self.quant_stats.calibrating
@@ -203,15 +211,7 @@ class Bottleneck(nn.Module):
         if fused and not kernel_takes(xn, dt):
             Bottleneck.fp32_unfused_runs += 1
         elif fused:
-            if xn.device.type == "cuda":
-                return launch(xn.to(dt), self.k3_operands()).permute(
-                    0, 3, 1, 2)
-            w1, b1, w2, b2, w3, b3, wd, bd = self.folded_weights()
-            y = fused_bottleneck_int8_infer(
-                xn.to(dt), w1, b1, w2, b2, w3, b3, scale("conv1_in", xn),
-                scale("conv2_in", xn), scale("conv3_in", xn), wd, bd,
-                bands=1 if spatial >= 4096 else self.quant_fused_l2_bands)
-            return y.permute(0, 3, 1, 2)
+            return q8.call(xn.to(dt), self.k3_operands()).permute(0, 3, 1, 2)
 
         w1, b1, w2, b2, w3, b3, wd, bd = self.folded_weights()
         out = torch.relu(quant_conv(xn, w1[None, None], bias=b1, out_dtype=dt,

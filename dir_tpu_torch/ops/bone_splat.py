@@ -8,11 +8,13 @@ and each of the 20 hand bones, pixels closer to the bone's segment than
 the relative distance to the endpoints. Only the materialized splat
 branch of the model (``fused_splat_conv=False``) runs it.
 
-On a CUDA tensor :func:`bone_splat` launches the hand-written kernel in
-``csrc/bone_splat.cu``; on a CPU tensor it runs :func:`bone_splat_plain`.
-There is no other fallback: a CUDA tensor the kernel does not take
-raises. Its gradient differentiates the plain version, as the JAX
-package's ``custom_vjp`` does.
+The kernel is the PyTorch op ``torch.ops.dir_tpu.bone_splat``: on a CUDA
+tensor it launches the hand-written kernel in ``csrc/bone_splat.cu``; on a
+CPU tensor it runs :func:`bone_splat_plain`; its fake implementation gives
+the output's shape, so that a traced or exported graph names the op
+whatever the device. There is no other fallback: a CUDA tensor the kernel
+does not take raises. Its gradient (``register_autograd``) differentiates
+the plain version, as the JAX package's ``custom_vjp`` does.
 """
 
 from __future__ import annotations
@@ -156,41 +158,48 @@ def _launch(joint_uv, joint_feat, size: int, distance: float) -> torch.Tensor:
     return out
 
 
-def _forward(joint_uv, joint_feat, size: int, distance: float) -> torch.Tensor:
-    if joint_uv.device != joint_feat.device:
-        raise ValueError(f"joint_uv is on {joint_uv.device}, joint_feat on "
-                         f"{joint_feat.device}")
-    if joint_feat.device.type == "cpu":
-        bone_splat.plain_runs += 1
-        return bone_splat_plain(joint_uv, joint_feat, size, distance)
-    if joint_feat.device.type != "cuda":
-        raise ValueError(f"no bone splat for device {joint_feat.device}")
-    return _launch(joint_uv, joint_feat, size, distance)
+@torch.library.custom_op(
+    "dir_tpu::bone_splat", mutates_args=(), device_types="cpu",
+    schema="(Tensor joint_uv, Tensor joint_feat, int size, float distance) "
+           "-> Tensor")
+def _op(joint_uv, joint_feat, size, distance):
+    """The CPU implementation: the plain version."""
+    bone_splat.plain_runs += 1
+    return bone_splat_plain(joint_uv, joint_feat, size, distance)
 
 
-class _BoneSplat(torch.autograd.Function):
-    """Forward through the kernel; backward through the plain version."""
+_op.register_kernel("cuda")(_launch)
 
-    @staticmethod
-    def forward(ctx, joint_uv, joint_feat, size, distance):
-        ctx.save_for_backward(joint_uv, joint_feat)
-        ctx.size, ctx.distance = size, distance
-        return _forward(joint_uv, joint_feat, size, distance)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        joint_uv, joint_feat = ctx.saved_tensors
-        with torch.enable_grad():
-            uv = joint_uv.detach().requires_grad_(True)
-            feat = joint_feat.detach().requires_grad_(True)
-            out = bone_splat_plain(uv, feat, ctx.size, ctx.distance)
-            g_uv, g_feat = torch.autograd.grad(out, (uv, feat), grad_out)
-        return g_uv, g_feat, None, None
+@_op.register_fake
+def _op_fake(joint_uv, joint_feat, size, distance):
+    b, _, c = joint_feat.shape
+    return joint_feat.new_empty((b, size, size, 20 * c))
+
+
+def _setup_context(ctx, inputs, output):
+    joint_uv, joint_feat, size, distance = inputs
+    ctx.save_for_backward(joint_uv, joint_feat)
+    ctx.size, ctx.distance = size, distance
+
+
+def _backward(ctx, grad_out):
+    """The plain version's gradient, whichever route ran the forward."""
+    joint_uv, joint_feat = ctx.saved_tensors
+    with torch.enable_grad():
+        uv = joint_uv.detach().requires_grad_(True)
+        feat = joint_feat.detach().requires_grad_(True)
+        out = bone_splat_plain(uv, feat, ctx.size, ctx.distance)
+        g_uv, g_feat = torch.autograd.grad(out, (uv, feat), grad_out)
+    return g_uv, g_feat, None, None
+
+
+_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def bone_splat(joint_uv: torch.Tensor, joint_feat: torch.Tensor, size: int,
                distance: float) -> torch.Tensor:
-    """The bone splat through kernel K5.
+    """The bone splat through kernel K5 (``torch.ops.dir_tpu.bone_splat``).
 
     Same arguments and result as :func:`bone_splat_plain`. CUDA tensors
     (fp32 ``joint_uv``; bf16 or fp32 ``joint_feat``) go to the kernel, CPU
@@ -199,7 +208,13 @@ def bone_splat(joint_uv: torch.Tensor, joint_feat: torch.Tensor, size: int,
     ``bone_splat.plain_runs`` counts the CPU calls that ran the plain
     version in its place.
     """
-    return _BoneSplat.apply(joint_uv, joint_feat, int(size), float(distance))
+    if joint_uv.device != joint_feat.device:
+        raise ValueError(f"joint_uv is on {joint_uv.device}, joint_feat on "
+                         f"{joint_feat.device}")
+    if joint_feat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no bone splat for device {joint_feat.device}")
+    return torch.ops.dir_tpu.bone_splat(joint_uv, joint_feat, int(size),
+                                        float(distance))
 
 
 bone_splat.launches = 0

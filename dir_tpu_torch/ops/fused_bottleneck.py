@@ -14,6 +14,14 @@ the plain PyTorch version with the same rounding points; banding changes a
 schedule, not the math, so one plain version serves both. There is no other
 fallback: a CUDA tensor the kernel does not take raises.
 
+The kernel is the PyTorch op ``torch.ops.dir_tpu.fused_bottleneck`` on the
+operands (:func:`call`): its CUDA implementation is :func:`launch`, its CPU
+implementation unpacks the weight image and runs the plain version, and its
+fake implementation gives the output's shape, so that a traced or exported
+graph names the op whatever the device. The wrapper lays the weights out in
+the activations' dtype (:func:`pack`); on the CPU an fp32 image holds the
+fp32 weights exactly.
+
 The kernel is compiled at first use (``ops/cuda_build.py``) from this
 package's sources only, and bound with ``ctypes``.
 """
@@ -171,6 +179,22 @@ def kernel_operands(w1, b1, w2, b2, w3, b3, wd=None, bd=None, *,
     kernel form the operands are for (0: K1, weights resident in shared
     memory; > 0: K2, streamed). A caller that serves many requests may keep
     the result."""
+    check_widths(w1.shape[0], w1.shape[1], w3.shape[-1])
+    return pack(w1, b1, w2, b2, w3, b3, wd, bd, bands=bands)
+
+
+def check_widths(c: int, mid: int, o: int) -> None:
+    """Raise unless the kernel takes these widths."""
+    if c % 16 or o % 16 or mid not in (16, 32, 64, 128):
+        raise ValueError(f"C and O must be multiples of 16 and mid one of "
+                         f"16, 32, 64, 128; got {c}, {mid}, {o}")
+
+
+def pack(w1, b1, w2, b2, w3, b3, wd=None, bd=None, *, bands: int,
+         dtype=torch.bfloat16) -> Operands:
+    """:func:`kernel_operands` without the kernel's width check, the image
+    in ``dtype``: the same layout at any mid up to 32 or multiple of 32,
+    for the plain route of the op (:func:`unpack_weights` inverts it)."""
     dev = w1.device
     c, mid = w1.shape
     o = w3.shape[-1]
@@ -185,16 +209,40 @@ def kernel_operands(w1, b1, w2, b2, w3, b3, wd=None, bd=None, *,
         _check(bd, "bd", (o,), dev)
     elif o != c:
         raise ValueError(f"identity residual needs O == C, got {o} vs {c}")
-    if c % 16 or o % 16 or mid not in (16, 32, 64, 128):
-        raise ValueError(f"C and O must be multiples of 16 and mid one of "
-                         f"16, 32, 64, 128; got {c}, {mid}, {o}")
     srcs = [w1, w2, w3] + ([wd] if has_down else [])
     flat = torch.cat([torch.zeros(1, device=dev)]
                      + [w.reshape(-1).float() for w in srcs])
-    image = flat.to(torch.bfloat16)[_image_index(c, mid, o, has_down, dev)]
+    image = flat.to(dtype)[_image_index(c, mid, o, has_down, dev)]
     f32 = [t if t is None else t.float().contiguous().clone()
            for t in (b1, b2, b3, bd)]
     return Operands(image, *f32, c, mid, o, bands)
+
+
+def source_index(index: torch.Tensor) -> torch.Tensor:
+    """The inverse of an image index (``_image_index``): where in the image
+    each weight element (in the order of the flattened sources) lies. Every
+    position but the padding's 0 appears once in an image."""
+    idx = index.long()
+    src = torch.zeros(int(idx.max()) + 1, dtype=torch.long, device=idx.device)
+    src[idx] = torch.arange(idx.numel(), device=idx.device)
+    return src[1:]
+
+
+@functools.lru_cache(maxsize=64)
+def _source_index(c: int, mid: int, o: int, has_down: bool,
+                  device: torch.device) -> torch.Tensor:
+    return source_index(_image_index(c, mid, o, has_down, device))
+
+
+def unpack_weights(image: torch.Tensor, c: int, mid: int, o: int,
+                   has_down: bool) -> tuple:
+    """``(w1, w2, w3, wd)`` in the image's dtype from a weight image of
+    :func:`pack` (``wd`` None without the projection); exact."""
+    flat = image[_source_index(c, mid, o, has_down, image.device)]
+    sizes = [c * mid, 9 * mid * mid, mid * o] + ([c * o] if has_down else [])
+    w1, w2, w3, *wd = torch.split(flat, sizes)
+    return (w1.reshape(c, mid), w2.reshape(3, 3, mid, mid),
+            w3.reshape(mid, o), wd[0].reshape(c, o) if has_down else None)
 
 
 def build() -> str:
@@ -234,9 +282,9 @@ def _check(t: torch.Tensor, name: str, shape: tuple, device) -> None:
 def launch(x: torch.Tensor, operands: Operands, bands: int) -> torch.Tensor:
     """Launch K1 (``bands`` 0) or K2 on a CUDA ``x`` with the operands of
     :func:`kernel_operands`; raises on anything the kernel does not take."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA kernel takes bf16 activations, got "
-                        f"{x.dtype}")
+    if x.dtype != torch.bfloat16 or operands.image.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA kernel takes bf16 activations and a bf16 "
+                        f"image, got {x.dtype} and {operands.image.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("x must be a contiguous NHWC (B, H, W, C) tensor "
                          "(an NCHW tensor in channels_last, permuted)")
@@ -245,6 +293,7 @@ def launch(x: torch.Tensor, operands: Operands, bands: int) -> torch.Tensor:
     if op.c != c or op.image.device != x.device:
         raise ValueError(f"the operands are for C={op.c} on "
                          f"{op.image.device}, x has C={c} on {x.device}")
+    check_widths(c, op.mid, op.o)
     if bool(op.bands) != bool(bands):
         raise ValueError(f"the operands were made for bands={op.bands}, "
                          f"launched with bands={bands}")
@@ -296,6 +345,47 @@ def launch_on(lib: ctypes.CDLL, x: torch.Tensor, op: Operands,
     return out
 
 
+_SCHEMA = ("(Tensor x, Tensor image, Tensor b1, Tensor b2, Tensor b3, "
+           "Tensor? bd, int mid, int o, int bands) -> Tensor")
+
+
+@torch.library.custom_op("dir_tpu::fused_bottleneck", mutates_args=(),
+                         device_types="cpu", schema=_SCHEMA)
+def _op(x, image, b1, b2, b3, bd, mid, o, bands):
+    """The CPU implementation: the plain version on the unpacked image."""
+    w1, w2, w3, wd = unpack_weights(image, x.shape[-1], mid, o,
+                                    bd is not None)
+    fused_bottleneck_infer.plain_runs += 1
+    return fused_bottleneck_infer_plain(x, w1, b1, w2, b2, w3, b3, wd, bd)
+
+
+@_op.register_kernel("cuda")
+def _op_cuda(x, image, b1, b2, b3, bd, mid, o, bands):
+    return launch(x, Operands(image, b1, b2, b3, bd, x.shape[-1], mid, o,
+                              bands), bands)
+
+
+@_op.register_fake
+def _op_fake(x, image, b1, b2, b3, bd, mid, o, bands):
+    return x.new_empty((*x.shape[:3], o))
+
+
+def call(x: torch.Tensor, operands: Operands, bands: int) -> torch.Tensor:
+    """``torch.ops.dir_tpu.fused_bottleneck`` on ``x`` and the operands:
+    K1 or K2 on the card, the plain version on the CPU."""
+    op = operands
+    return torch.ops.dir_tpu.fused_bottleneck(
+        x, op.image, op.b1, op.b2, op.b3, op.bd, op.mid, op.o, bands)
+
+
+def check_device(x: torch.Tensor, w1: torch.Tensor) -> None:
+    """Raise unless ``x`` is on the CPU or a card and ``w1`` beside it."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x.device}")
+    if w1.device != x.device:
+        raise ValueError(f"w1 is on {w1.device}, x on {x.device}")
+
+
 def fused_bottleneck_infer(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None,
                            bands: int = 0) -> torch.Tensor:
     """One fused stride-1 bottleneck block at inference.
@@ -303,27 +393,19 @@ def fused_bottleneck_infer(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None,
     Same arguments and result as :func:`fused_bottleneck_infer_plain`, plus
     ``bands``: 0 launches K1, N > 0 launches K2 (the JAX package's row-banded
     schedule, needed for the layer2 shape; ``H % bands`` must be 0 as
-    there, though K2's tiling does not depend on N). A CUDA ``x`` must be
-    bf16 and NHWC-contiguous and goes to the kernel
-    (:func:`kernel_operands`, then :func:`launch`); a CPU ``x`` goes to the
-    plain version. ``fused_bottleneck_infer.launches`` counts K1's launches
-    and ``.streamed_launches`` K2's, on the card only; ``.plain_runs``
-    counts the CPU calls that ran the plain version in a kernel's place.
+    there, though K2's tiling does not depend on N). The weights are laid
+    out in ``x``'s dtype (:func:`pack`) and go with ``x`` to the op
+    (:func:`call`): a CUDA ``x`` must be bf16 and NHWC-contiguous and goes
+    to the kernel (:func:`launch`); a CPU ``x`` goes to the plain version.
+    ``fused_bottleneck_infer.launches`` counts K1's launches and
+    ``.streamed_launches`` K2's, on the card only; ``.plain_runs`` counts
+    the CPU calls that ran the plain version in a kernel's place.
     """
     if bands < 0 or (bands and x.shape[1] % bands):
         raise ValueError(f"bands={bands} must be 0 or divide H={x.shape[1]}")
-    if x.device.type == "cpu":
-        fused_bottleneck_infer.plain_runs += 1
-        return fused_bottleneck_infer_plain(x, w1, b1, w2, b2, w3, b3, wd, bd)
-    if x.device.type != "cuda":
-        raise ValueError(f"no fused bottleneck for device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA kernel takes bf16 activations, got "
-                        f"{x.dtype}")
-    if w1.device != x.device:
-        raise ValueError(f"w1 is on {w1.device}, x on {x.device}")
-    return launch(x, kernel_operands(w1, b1, w2, b2, w3, b3, wd, bd,
-                                     bands=bands), bands)
+    check_device(x, w1)
+    return call(x, pack(w1, b1, w2, b2, w3, b3, wd, bd, bands=bands,
+                        dtype=x.dtype), bands)
 
 
 fused_bottleneck_infer.launches = 0

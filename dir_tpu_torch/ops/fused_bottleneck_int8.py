@@ -19,6 +19,13 @@ them and :func:`launch` launches on them; a caller may keep the operands
 the kernel's rounding points. There is no other fallback: a CUDA tensor the
 kernel does not take raises.
 
+The kernel is the PyTorch op ``torch.ops.dir_tpu.fused_bottleneck_int8``
+on the operands (:func:`call`): its CUDA implementation is :func:`launch`,
+its CPU implementation unpacks the int8 image and runs the plain version on
+the quantized weights, and its fake implementation gives the output's
+shape, so that a traced or exported graph names the op whatever the device
+(and an exported graph holds kept operands as constants).
+
 The kernel multiplies by ``1 / scale`` where ``ops/quant.py:quantize_act``
 divides by the scale, as in the JAX package; the plain version follows the
 kernel.
@@ -33,8 +40,11 @@ from typing import NamedTuple
 import torch
 
 from dir_tpu_torch.ops import cuda_build
+import torch.nn.functional as F
+
 from dir_tpu_torch.ops.fused_bottleneck import (_check, _pad, _panels,
-                                              channel_order)
+                                              channel_order, check_device,
+                                              source_index)
 from dir_tpu_torch.ops.quant import (conv_s32, int_matmul,
                                      quantize_weight_per_channel)
 
@@ -98,11 +108,19 @@ def fused_bottleneck_int8_infer_plain(x, w1, b1, w2, b2, w3, b3, s_in,
         the residual is x itself or the int8 projection of the quantized x;
         the add and the last ReLU run in x's dtype.
     """
-    dt = x.dtype
-    b, h, w, c = x.shape
-    mid = w1.shape[-1]
     w1q, w2q, w3q, wdq, inv, m1, m2, m3, md = _quantized_operands(
         w1, w2, w3, wd, s_in, s_mid1, s_mid2)
+    return _plain_quantized(x, w1q, w2q, w3q, wdq, inv, m1, b1, m2, b2, m3,
+                            b3, md, bd)
+
+
+def _plain_quantized(x, w1q, w2q, w3q, wdq, inv, m1, b1, m2, b2, m3, b3, md,
+                     bd) -> torch.Tensor:
+    """The plain version from the quantized weights (``w2q`` as
+    ``(9 mid, mid)`` or ``(3, 3, mid, mid)``) and the operand vectors."""
+    dt = x.dtype
+    b, h, w, c = x.shape
+    mid = w1q.shape[-1]
 
     def dequant(acc, m, bias):
         return (acc.float() * m + bias.float()).to(dt)
@@ -113,7 +131,7 @@ def fused_bottleneck_int8_infer_plain(x, w1, b1, w2, b2, w3, b3, s_in,
     a2 = conv_s32(y1q, w2q.reshape(3, 3, mid, mid), (1, 1), ((1, 1), (1, 1)))
     y2 = torch.relu(dequant(a2.reshape(b * h * w, mid), m2, b2))
     y3 = dequant(int_matmul(_quantize(y2, inv[2]), w3q), m3, b3)
-    if wd is None:
+    if wdq is None:
         res = x.reshape(b * h * w, c)
     else:
         res = dequant(int_matmul(xq, wdq), md, bd)
@@ -249,6 +267,29 @@ def kernel_operands(w1, b1, w2, b2, w3, b3, s_in, s_mid1, s_mid2, wd=None,
     the dequantize vectors ``act_scale * w_scale[o]`` and biases, fp32 in
     channel order. They depend on the block's weights and scales only, so a
     caller that serves many requests may keep them."""
+    check_widths(w1.shape[0], w1.shape[1], w3.shape[-1])
+    return pack(w1, b1, w2, b2, w3, b3, s_in, s_mid1, s_mid2, wd, bd)
+
+
+def check_widths(c: int, mid: int, o: int) -> None:
+    """Raise unless the kernel takes these widths."""
+    if c % 32 or o % 32 or mid not in (32, 64, 128):
+        raise ValueError(f"C and O must be multiples of 32 and mid one of "
+                         f"32, 64, 128; got {c}, {mid}, {o}")
+
+
+def _mid_padded(mid: int) -> int:
+    """The mid the image is laid out at: a multiple of 32 (the kernel's
+    widths are; others, for the plain route, get zero channels)."""
+    return _ceil(mid, 32) * 32
+
+
+def pack(w1, b1, w2, b2, w3, b3, s_in, s_mid1, s_mid2, wd=None,
+         bd=None) -> Operands:
+    """:func:`kernel_operands` without the kernel's width check, for the
+    plain route of the op (:func:`unpack_weights` inverts it): at a mid
+    that is no multiple of 32 the quantized weights are laid out with zero
+    channels up to one; the vectors keep their widths."""
     dev = w1.device
     c, mid = w1.shape
     o = w3.shape[-1]
@@ -266,18 +307,41 @@ def kernel_operands(w1, b1, w2, b2, w3, b3, s_in, s_mid1, s_mid2, wd=None,
         _check(bd, "bd", (o,), dev)
     elif o != c:
         raise ValueError(f"identity residual needs O == C, got {o} vs {c}")
-    if c % 32 or o % 32 or mid not in (32, 64, 128):
-        raise ValueError(f"C and O must be multiples of 32 and mid one of "
-                         f"32, 64, 128; got {c}, {mid}, {o}")
     w1q, w2q, w3q, wdq, inv, m1, m2, m3, md = _quantized_operands(
         w1, w2, w3, wd, s_in, s_mid1, s_mid2)
+    pm = _mid_padded(mid) - mid
     srcs = [w1q, w2q, w3q] + ([wdq] if has_down else [])
+    if pm:
+        srcs[:3] = [F.pad(w1q, (0, pm)),
+                    F.pad(w2q.reshape(9, mid, mid), (0, pm, 0, pm)),
+                    F.pad(w3q, (0, 0, 0, pm))]
     flat = torch.cat([torch.zeros(1, dtype=torch.int8, device=dev)]
                      + [w.reshape(-1) for w in srcs])
-    image = flat[_image_index(c, mid, o, has_down, dev)]
+    image = flat[_image_index(c, mid + pm, o, has_down, dev)]
     f32 = [t if t is None else t.float().contiguous()
            for t in (inv, m1, b1, m2, b2, m3, b3, md, bd)]
     return Operands(image, *f32, c, mid, o)
+
+
+@functools.lru_cache(maxsize=64)
+def _source_index(c: int, mid: int, o: int, has_down: bool,
+                  device: torch.device) -> torch.Tensor:
+    return source_index(_image_index(c, mid, o, has_down, device))
+
+
+def unpack_weights(image: torch.Tensor, c: int, mid: int, o: int,
+                   has_down: bool) -> tuple:
+    """``(w1q, w2q, w3q, wdq)`` (int8; ``w2q`` as ``(3, 3, mid, mid)``,
+    ``wdq`` None without the projection) from an image of :func:`pack`;
+    exact."""
+    mp = _mid_padded(mid)
+    flat = image[_source_index(c, mp, o, has_down, image.device)]
+    sizes = [c * mp, 9 * mp * mp, mp * o] + ([c * o] if has_down else [])
+    w1, w2, w3, *wd = torch.split(flat, sizes)
+    return (w1.reshape(c, mp)[:, :mid].contiguous(),
+            w2.reshape(3, 3, mp, mp)[:, :, :mid, :mid].contiguous(),
+            w3.reshape(mp, o)[:mid].contiguous(),
+            wd[0].reshape(c, o) if has_down else None)
 
 
 def build() -> str:
@@ -333,6 +397,7 @@ def launch(x: torch.Tensor, operands: Operands) -> torch.Tensor:
     if op.c != c or op.image.device != x.device:
         raise ValueError(f"the operands are for C={op.c} on "
                          f"{op.image.device}, x has C={c} on {x.device}")
+    check_widths(c, op.mid, op.o)
     if b <= 0:
         raise ValueError(f"batch {b} is empty")
     lay = layout(c, op.mid, op.o, op.md is not None)
@@ -371,6 +436,40 @@ def launch_on(lib: ctypes.CDLL, x: torch.Tensor,
     return out
 
 
+_SCHEMA = ("(Tensor x, Tensor image, Tensor inv, Tensor m1, Tensor b1, "
+           "Tensor m2, Tensor b2, Tensor m3, Tensor b3, Tensor? md, "
+           "Tensor? bd, int mid, int o) -> Tensor")
+
+
+@torch.library.custom_op("dir_tpu::fused_bottleneck_int8", mutates_args=(),
+                         device_types="cpu", schema=_SCHEMA)
+def _op(x, image, inv, m1, b1, m2, b2, m3, b3, md, bd, mid, o):
+    """The CPU implementation: the plain version on the unpacked image."""
+    w1q, w2q, w3q, wdq = unpack_weights(image, x.shape[-1], mid, o,
+                                        md is not None)
+    fused_bottleneck_int8_infer.plain_runs += 1
+    return _plain_quantized(x, w1q, w2q, w3q, wdq, inv, m1, b1, m2, b2, m3,
+                            b3, md, bd)
+
+
+@_op.register_kernel("cuda")
+def _op_cuda(x, image, inv, m1, b1, m2, b2, m3, b3, md, bd, mid, o):
+    return launch(x, Operands(image, inv, m1, b1, m2, b2, m3, b3, md, bd,
+                              x.shape[-1], mid, o))
+
+
+@_op.register_fake
+def _op_fake(x, image, inv, m1, b1, m2, b2, m3, b3, md, bd, mid, o):
+    return x.new_empty((*x.shape[:3], o))
+
+
+def call(x: torch.Tensor, operands: Operands) -> torch.Tensor:
+    """``torch.ops.dir_tpu.fused_bottleneck_int8`` on ``x`` and the
+    operands: K3 on the card, the plain version on the CPU."""
+    return torch.ops.dir_tpu.fused_bottleneck_int8(x, *operands[:10],
+                                                   operands.mid, operands.o)
+
+
 def fused_bottleneck_int8_infer(x, w1, b1, w2, b2, w3, b3, s_in, s_mid1,
                                 s_mid2, wd=None, bd=None,
                                 bands: int = 1) -> torch.Tensor:
@@ -378,13 +477,13 @@ def fused_bottleneck_int8_infer(x, w1, b1, w2, b2, w3, b3, s_in, s_mid1,
 
     Same arguments and result as :func:`fused_bottleneck_int8_infer_plain`.
     ``H % bands`` must be 0, as in the JAX package, though the kernel's
-    tiling does not depend on ``bands``. A CUDA ``x`` must be bf16 and
-    NHWC-contiguous and goes to the kernel (:func:`kernel_operands`, some
-    sixty small launches that quantize the weights and lay them out, then
-    :func:`launch`); a CPU ``x`` goes to the plain version.
-    ``fused_bottleneck_int8_infer.launches`` counts the kernel's launches,
-    on the card only; ``.plain_runs`` counts the CPU calls that ran the
-    plain version in its place.
+    tiling does not depend on ``bands``. The weights are quantized and laid
+    out (:func:`pack`, some sixty small launches on the card) and go with
+    ``x`` to the op (:func:`call`): a CUDA ``x`` must be bf16 and
+    NHWC-contiguous and goes to the kernel (:func:`launch`); a CPU ``x``
+    goes to the plain version. ``fused_bottleneck_int8_infer.launches``
+    counts the kernel's launches, on the card only; ``.plain_runs`` counts
+    the CPU calls that ran the plain version in its place.
     """
     if bands < 1 or x.shape[1] % bands:
         raise ValueError(f"bands={bands} must be >= 1 and divide "
@@ -394,16 +493,9 @@ def fused_bottleneck_int8_infer(x, w1, b1, w2, b2, w3, b3, s_in, s_mid1,
             raise TypeError(f"{name} must be a scalar tensor, a calibrated "
                             "scale: a dynamic scale is a reduction over the "
                             "whole batch, which no block of this kernel sees")
-    if x.device.type == "cpu":
-        fused_bottleneck_int8_infer.plain_runs += 1
-        return fused_bottleneck_int8_infer_plain(
-            x, w1, b1, w2, b2, w3, b3, s_in, s_mid1, s_mid2, wd, bd)
-    if x.device.type != "cuda":
-        raise ValueError(f"no fused int8 bottleneck for device {x.device}")
-    if w1.device != x.device:
-        raise ValueError(f"w1 is on {w1.device}, x on {x.device}")
-    return launch(x, kernel_operands(w1, b1, w2, b2, w3, b3, s_in, s_mid1,
-                                     s_mid2, wd, bd))
+    check_device(x, w1)
+    return call(x, pack(w1, b1, w2, b2, w3, b3, s_in, s_mid1, s_mid2, wd,
+                        bd))
 
 
 fused_bottleneck_int8_infer.launches = 0

@@ -11,6 +11,12 @@ weights out as the kernel reads them and :func:`launch` launches on them. On
 a CPU tensor it runs :func:`fused_stem_bottleneck_plain`, the plain PyTorch
 version with the same rounding points. There is no other fallback: a CUDA
 tensor the kernel does not take raises.
+
+The kernel is the PyTorch op ``torch.ops.dir_tpu.fused_stem_bottleneck``
+on the operands (:func:`call`): its CUDA implementation is :func:`launch`,
+its CPU implementation unpacks the operands and runs the plain version, and
+its fake implementation gives the output's shape. The wrapper lays the
+operands out in the activations' dtype (:func:`pack`).
 """
 
 from __future__ import annotations
@@ -99,20 +105,51 @@ def kernel_operands(g1, t1, w1, b1, w2, b2, w3, b3, wd, bd) -> Operands:
     index); the biases are one fp32 vector, b3 and bd zero-padded to whole
     conv3 chunks; g1 and t1 are cast to bf16, as the plain version casts
     them, and zero-padded to 64 channels. A caller may keep the result."""
+    check_widths(w1.shape[0], w1.shape[1])
+    return pack(g1, t1, w1, b1, w2, b2, w3, b3, wd, bd)
+
+
+def check_widths(c: int, mid: int) -> None:
+    """Raise unless the kernel takes these widths."""
+    if c > _KC or mid not in _MIDS:
+        raise ValueError(f"the stem kernel takes C up to {_KC} and mid one "
+                         f"of {_MIDS}; got C={c}, mid={mid}")
+
+
+def pack(g1, t1, w1, b1, w2, b2, w3, b3, wd, bd,
+         dtype=torch.bfloat16) -> Operands:
+    """:func:`kernel_operands` without the kernel's width check (C up to 64
+    still), the image and g1, t1 in ``dtype``, for the plain route of the
+    op (:func:`unpack` inverts it)."""
     dev = w1.device
     c, mid = w1.shape
     o = w3.shape[-1]
     for name, t in (("g1", g1), ("t1", t1)):
         fb._check(t, name, (c,), dev)
-    if c > _KC or mid not in _MIDS:
-        raise ValueError(f"the stem kernel takes C up to {_KC} and mid one "
-                         f"of {_MIDS}; got C={c}, mid={mid}")
-    ops = fb.kernel_operands(w1, b1, w2, b2, w3, b3, wd, bd, bands=0)
-    op = -(-o // fb.conv3_chunk(mid)) * fb.conv3_chunk(mid)
+    if c > _KC:
+        raise ValueError(f"the stem kernel takes C up to {_KC}, got {c}")
+    ops = fb.pack(w1, b1, w2, b2, w3, b3, wd, bd, bands=0, dtype=dtype)
+    op = _padded_o(mid, o)
     vec = torch.cat([ops.b1, ops.b2, F.pad(ops.b3, (0, op - o)),
                      F.pad(ops.bd, (0, op - o))])
-    gt = F.pad(torch.stack([g1, t1]).to(torch.bfloat16), (0, _KC - c))
+    gt = F.pad(torch.stack([g1, t1]).to(dtype), (0, _KC - c))
     return Operands(ops.image, vec, gt.contiguous(), c, mid, o)
+
+
+def _padded_o(mid: int, o: int) -> int:
+    n3 = fb.conv3_chunk(mid)
+    return -(-o // n3) * n3
+
+
+def unpack(operands: Operands) -> list:
+    """``[g1, t1, w1, b1, w2, b2, w3, b3, wd, bd]`` from operands of
+    :func:`pack`, the weights and g1, t1 in the image's dtype; exact."""
+    op = operands
+    w1, w2, w3, wd = fb.unpack_weights(op.image, op.c, op.mid, op.o, True)
+    b1, b2, b3, bd = torch.split(op.vec, [op.mid, op.mid] + [
+        _padded_o(op.mid, op.o)] * 2)
+    return [op.gt[0, :op.c], op.gt[1, :op.c], w1, b1, w2, b2, w3,
+            b3[:op.o], wd, bd[:op.o]]
 
 
 def build() -> str:
@@ -166,6 +203,9 @@ def launch(x: torch.Tensor, operands: Operands) -> torch.Tensor:
     if b <= 0 or h2 % 2 or w2 % 2:
         raise ValueError(f"x {tuple(x.shape)}: needs a batch and an even "
                          "height and width")
+    check_widths(c, op.mid)
+    if op.image.dtype != torch.bfloat16 or op.gt.dtype != torch.bfloat16:
+        raise TypeError("the CUDA kernel takes a bf16 image and BN affine")
     # TMA and the bulk copies read 16-byte aligned addresses
     if any(t.data_ptr() % 16 for t in (x, *op[:3])):
         raise ValueError("x and the operands must be 16-byte aligned")
@@ -198,15 +238,46 @@ def launch_on(lib: ctypes.CDLL, x: torch.Tensor, op: Operands) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op(
+    "dir_tpu::fused_stem_bottleneck", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor image, Tensor vec, Tensor gt, int mid, int o) "
+           "-> Tensor")
+def _op(x, image, vec, gt, mid, o):
+    """The CPU implementation: the plain version on the unpacked operands."""
+    fused_stem_bottleneck.plain_runs += 1
+    return fused_stem_bottleneck_plain(
+        x, *unpack(Operands(image, vec, gt, x.shape[-1], mid, o)))
+
+
+@_op.register_kernel("cuda")
+def _op_cuda(x, image, vec, gt, mid, o):
+    return launch(x, Operands(image, vec, gt, x.shape[-1], mid, o))
+
+
+@_op.register_fake
+def _op_fake(x, image, vec, gt, mid, o):
+    b, h2, w2, _ = x.shape
+    return x.new_empty((b, h2 // 2, w2 // 2, o))
+
+
+def call(x: torch.Tensor, operands: Operands) -> torch.Tensor:
+    """``torch.ops.dir_tpu.fused_stem_bottleneck`` on ``x`` and the
+    operands: K4 on the card, the plain version on the CPU."""
+    op = operands
+    return torch.ops.dir_tpu.fused_stem_bottleneck(x, op.image, op.vec,
+                                                   op.gt, op.mid, op.o)
+
+
 def fused_stem_bottleneck(x, g1, t1, w1, b1, w2, b2, w3, b3, wd,
                           bd) -> torch.Tensor:
     """Stem BN + ReLU + max pool + layer1_0 in one op.
 
     Same arguments and result as :func:`fused_stem_bottleneck_plain`. The
     pooled height must be a multiple of 4 and the input's height and width
-    even, as in the JAX package. A CUDA ``x`` must be bf16 and contiguous
-    and goes to the kernel (:func:`kernel_operands`, then :func:`launch`);
-    a CPU ``x`` goes to the plain version. ``fused_stem_bottleneck.launches``
+    even, as in the JAX package. The operands are laid out in ``x``'s dtype
+    (:func:`pack`) and go with ``x`` to the op (:func:`call`): a CUDA ``x``
+    must be bf16 and contiguous and goes to the kernel (:func:`launch`); a
+    CPU ``x`` goes to the plain version. ``fused_stem_bottleneck.launches``
     counts the kernel's launches, on the card only; ``.plain_runs`` counts
     the CPU calls that ran the plain version in its place.
     """
@@ -217,18 +288,8 @@ def fused_stem_bottleneck(x, g1, t1, w1, b1, w2, b2, w3, b3, wd,
         raise ValueError("fused_stem_bottleneck needs an even input height "
                          "and width and a pooled height that is a multiple "
                          f"of 4, got input {tuple(x.shape)}")
-    if x.device.type == "cpu":
-        fused_stem_bottleneck.plain_runs += 1
-        return fused_stem_bottleneck_plain(x, g1, t1, w1, b1, w2, b2, w3, b3,
-                                           wd, bd)
-    if x.device.type != "cuda":
-        raise ValueError(f"no fused stem bottleneck for device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA kernel takes bf16 activations, got "
-                        f"{x.dtype}")
-    if w1.device != x.device:
-        raise ValueError(f"w1 is on {w1.device}, x on {x.device}")
-    return launch(x, kernel_operands(g1, t1, w1, b1, w2, b2, w3, b3, wd, bd))
+    fb.check_device(x, w1)
+    return call(x, pack(g1, t1, w1, b1, w2, b2, w3, b3, wd, bd, x.dtype))
 
 
 fused_stem_bottleneck.launches = 0

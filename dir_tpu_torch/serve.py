@@ -1,21 +1,32 @@
-"""Serving entry points of the port: build the flagship model and answer
-``img -> outputs`` requests (counterpart of ``__graft_entry__._flagship``
-and of the inference step of ``dir_tpu/serve.py``)."""
+"""Serving entry points of the port: build the flagship model, answer
+``img -> outputs`` requests, and export the inference step as a serving
+artifact (counterpart of ``__graft_entry__._flagship`` and of
+``dir_tpu/serve.py``).
+
+The artifact (:func:`export_infer`) is a ``torch.export`` program of the
+eval forward, traced once with the weights and the MANO tensors embedded
+as constants, behind a magic header. The kernels are ops the program names
+(``torch.ops.dir_tpu.*``, ``ops/library.py``): loading it (:func:`load_infer`)
+needs those registrations and no model code; this module imports the models
+only inside the functions that build one. The program holds constants made
+on the device it was exported on, so it serves there: export on the device
+you serve on, with the torch version you serve with.
+"""
 
 from __future__ import annotations
 
+import io
 import math
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from dir_tpu_torch.config import ModelConfig
-from dir_tpu_torch.device import resolve_device
+from dir_tpu_torch.device import no_tf32, resolve_device
 from dir_tpu_torch.mano.assets import (ManoModel, fix_left_shapedirs,
                                        load_mano_pair, synthetic_mano)
-from dir_tpu_torch.models.dir import DIR
-from dir_tpu_torch.models.gcn import PGraphConv
 from dir_tpu_torch.ops import quant
 
 # The keyword arguments of :func:`build_flagship` that select configuration B.
@@ -44,6 +55,8 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
     scales and shifts near 1 and 0 (running statistics stay at mean 0,
     variance 1, as ``init`` leaves them in the JAX package). All draws
     come from one CPU ``torch.Generator``."""
+    from dir_tpu_torch.models.gcn import PGraphConv
+
     g = torch.Generator().manual_seed(seed)
 
     def trunc(w: torch.Tensor, fan: int, scale: float) -> None:
@@ -159,6 +172,8 @@ def build_flagship(device=None, dtype: str = "bfloat16",
     card is present and none was named. Returns
     ``(model, cfg, mano_left, mano_right)``, all on ``device``.
     """
+    from dir_tpu_torch.models.dir import DIR
+
     dev = resolve_device(device)
     cfg = ModelConfig(dtype=dtype, fused_bottleneck_eval=fused_bottleneck_eval,
                       fused_l2_bands=fused_l2_bands,
@@ -190,8 +205,9 @@ def calibrate_static_scales(model: DIR, img, mano_left: ManoModel,
 
 def make_infer(model: DIR, mano_left: ManoModel, mano_right: ManoModel):
     """``img -> outputs`` for an eval-mode model: ``img`` is a (B, H, W, 3)
-    float32 array or tensor; it runs under ``torch.inference_mode()`` on
-    the model's device and returns the model's output dict."""
+    float32 array or tensor; it runs under ``torch.inference_mode()`` with
+    TF32 off (``device.no_tf32``) on the model's device and returns the
+    model's output dict."""
     dev = next(model.parameters()).device
     mano_left, mano_right = mano_left.to(dev), mano_right.to(dev)
     model.eval()
@@ -199,7 +215,117 @@ def make_infer(model: DIR, mano_left: ManoModel, mano_right: ManoModel):
     def infer(img) -> dict:
         if isinstance(img, np.ndarray):
             img = torch.from_numpy(img)
-        with torch.inference_mode():
+        with torch.inference_mode(), no_tf32():
             return model(img.to(dev, torch.float32), mano_left, mano_right)
 
     return infer
+
+
+# Artifact header: magic and version, so that a foreign file fails loudly
+# instead of reaching the archive reader.
+_MAGIC = b"DIRTPU-TORCH-SERVE-v1\n"
+# The range of a symbolic batch.
+MAX_BATCH = 4096
+
+
+class _Step(nn.Module):
+    """The inference step ``img -> outputs`` with the MANO pair held as
+    constants."""
+
+    def __init__(self, model: nn.Module, mano_left: ManoModel,
+                 mano_right: ManoModel):
+        super().__init__()
+        self.model = model
+        self.mano_left, self.mano_right = mano_left, mano_right
+
+    def forward(self, img: torch.Tensor) -> dict:
+        return self.model(img, self.mano_left, self.mano_right)
+
+
+def export_program(model: nn.Module, mano_left: ManoModel,
+                   mano_right: ManoModel, batch_size: Optional[int] = None,
+                   img_size: int = 256) -> torch.export.ExportedProgram:
+    """The ``torch.export`` program of the eval forward on the model's
+    device (non-strict, under ``torch.no_grad()`` with TF32 off).
+
+    ``batch_size`` None makes the batch symbolic (1 to ``MAX_BATCH``).
+    One forward on a seeded batch comes first, on the real tensors: it makes
+    the per-device constants (``device.index_tensor``, the kernels' layout
+    indices) and an int8 model's kept K3 operands, which the trace then
+    holds as constants instead of tracing their making."""
+    dev = next(model.parameters()).device
+    mano_left, mano_right = mano_left.to(dev), mano_right.to(dev)
+    step = _Step(model.eval(), mano_left, mano_right)
+    b = batch_size or 2
+    g = torch.Generator().manual_seed(0)
+    img = torch.randn((b, img_size, img_size, 3), generator=g).to(dev)
+    dynamic = (None if batch_size else
+               ({0: torch.export.Dim("batch", min=1, max=MAX_BATCH)},))
+    with torch.no_grad(), no_tf32():
+        step(img)
+        return torch.export.export(step, (img,), dynamic_shapes=dynamic,
+                                   strict=False)
+
+
+def export_infer(model: nn.Module, mano_left: ManoModel,
+                 mano_right: ManoModel, batch_size: Optional[int] = None,
+                 img_size: int = 256) -> bytes:
+    """Serialize the inference step ``img -> outputs`` as an artifact
+    (:func:`serialize` of :func:`export_program`: weights and MANO tensors
+    embedded)."""
+    return serialize(export_program(model, mano_left, mano_right,
+                                    batch_size, img_size))
+
+
+def serialize(program: torch.export.ExportedProgram) -> bytes:
+    """The magic header, then the ``torch.export.save`` archive."""
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    return _MAGIC + buf.getvalue()
+
+
+def op_counts(program: torch.export.ExportedProgram) -> dict:
+    """How many nodes of the program's graph call each ``dir_tpu`` op."""
+    from dir_tpu_torch.ops.library import OPS
+
+    counts = dict.fromkeys(OPS, 0)
+    for node in program.graph.nodes:
+        name = getattr(node.target, "name", lambda: "")()
+        if node.op == "call_function" and name.startswith("dir_tpu::"):
+            counts[name.split("::")[1].split(".")[0]] += 1
+    return counts
+
+
+def load_infer(blob: bytes) -> Callable:
+    """An artifact as ``img -> outputs``: ``img`` a (B, H, W, 3) float32
+    array or tensor; the output dict is the model's (``stages[-1]
+    ["pd_mesh_xyz_left"]``, ``seg``, ``dense``, ...). It runs as
+    :func:`make_infer` runs the live model: under ``torch.inference_mode()``
+    with TF32 off, on the device the artifact was exported on (the
+    callable's ``device``). Imports the op registrations and no model
+    code; raises ``ValueError`` on a foreign blob."""
+    if not blob.startswith(_MAGIC):
+        raise ValueError("not a dir_tpu_torch serving artifact (bad magic)")
+    from dir_tpu_torch.ops import library  # noqa: F401  the ops it names
+
+    module = torch.export.load(io.BytesIO(blob[len(_MAGIC):])).module()
+    dev = next(module.parameters()).device
+
+    def infer(img) -> dict:
+        if isinstance(img, np.ndarray):
+            img = torch.from_numpy(img)
+        with torch.inference_mode(), no_tf32():
+            return module(img.to(dev, torch.float32))
+
+    infer.device = dev
+    return infer
+
+
+def save(path: str, blob: bytes) -> None:
+    with open(path, "wb") as f:
+        f.write(blob)
+
+
+def load(path: str) -> Callable:
+    with open(path, "rb") as f:
+        return load_infer(f.read())

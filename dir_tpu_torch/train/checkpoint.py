@@ -80,3 +80,81 @@ def load_meta(ckpt_dir: str) -> dict:
         return {}
     with open(path) as f:
         return json.load(f)
+
+
+def load_torch_dir_checkpoint(pth_path: str,
+                              backbone_layers=(3, 4, 6, 3)) -> dict:
+    """The reference's released DIR ``.pth`` as a ``state_dict`` of the
+    port (counterpart of ``dir_tpu/train/checkpoint.py:
+    load_torch_dir_checkpoint``). The port's parameter names are the
+    reference's, so the file's ``net`` entry (or the file itself) is kept
+    where the mapping table (``weights.dir_mapping``) has the key: what
+    the port does not hold (STE block 0, the skip convs of same-width
+    Residuals, optimizer state) is dropped. Load the result with
+    :func:`prune_to_target` and ``load_state_dict(strict=True)``."""
+    from dir_tpu_torch.weights import dir_mapping
+
+    state = torch.load(pth_path, map_location="cpu", weights_only=False)
+    sd = state["net"] if "net" in state else state
+    keys = {e.torch_key for e in dir_mapping(backbone_layers)}
+    return {k: torch.as_tensor(v) for k, v in sd.items() if k in keys}
+
+
+def import_torch_resnet50(sd: dict) -> dict:
+    """A torchvision ResNet-50 ``state_dict`` as the port's backbone
+    ``state_dict`` (``model.backbone``): the keys the backbone holds, as
+    the reference copies matching keys (``fc`` and the step counters are
+    dropped). A conv7 stem goes to an s2d backbone through
+    ``weights.adapt_stem_s2d``."""
+    from dir_tpu_torch.weights import dir_mapping
+
+    keys = {e.torch_key[len("backbone."):]
+            for e in dir_mapping((3, 4, 6, 3))
+            if e.torch_key.startswith("backbone.")}
+    return {k: torch.as_tensor(v) for k, v in sd.items() if k in keys}
+
+
+def prune_to_target(converted: dict, target: torch.nn.Module) -> dict:
+    """The entries of ``converted`` that ``target`` holds, checked for full
+    coverage and shape (counterpart of ``prune_to_target`` there): raises
+    ``KeyError`` for a parameter or statistic ``target`` has and
+    ``converted`` lacks, ``ValueError`` for a shape that differs."""
+    out = {}
+    for key, want in model_state_dict(target).items():
+        if key not in converted:
+            raise KeyError(f"missing converted parameter: {key}")
+        if tuple(converted[key].shape) != tuple(want.shape):
+            raise ValueError(f"shape mismatch at {key}: "
+                             f"{tuple(converted[key].shape)} vs "
+                             f"{tuple(want.shape)}")
+        out[key] = converted[key]
+    return out
+
+
+def load_model_weights(model: torch.nn.Module, spec: str,
+                       seed: int = 0) -> str:
+    """Fill ``model`` (a DIR) with the weights an app's ``--model`` names
+    and return what was loaded: ``random`` (seeded random weights,
+    ``serve.random_init_``), a reference ``.pth``
+    (:func:`load_torch_dir_checkpoint`), or a port checkpoint given as
+    ``<ckpt_dir>/<name>``, ``<ckpt_dir>/<name>.pt`` or ``<ckpt_dir>`` (its
+    ``latest``). A conv7 stem is rewritten for an s2d model."""
+    from dir_tpu_torch.serve import random_init_
+    from dir_tpu_torch.weights import adapt_stem_s2d
+
+    if spec == "random":
+        random_init_(model, seed)
+        return "random"
+    if spec.endswith(".pth"):
+        sd = load_torch_dir_checkpoint(spec, model.cfg.backbone_layers)
+        what = "reference checkpoint"
+    else:
+        path = spec[:-3] if spec.endswith(".pt") else spec
+        sd = (load_checkpoint_weights(path, "latest") if os.path.isdir(path)
+              else load_checkpoint_weights(os.path.dirname(path) or ".",
+                                           os.path.basename(path)))
+        what = "checkpoint"
+    if model.cfg.backbone_stem == "s2d":
+        sd = adapt_stem_s2d(sd)
+    model.load_state_dict(prune_to_target(sd, model), strict=True)
+    return what

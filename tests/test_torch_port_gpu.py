@@ -3,8 +3,10 @@ bottleneck, weights resident and streamed), K3 (the fused int8 bottleneck), K4
 (stem + layer1_0) and K5 (the bone splat) against their plain versions, the
 unfused int8 conv's integers against the CPU's, the bf16 and int8
 forwards with the kernels against the fp32 forward, K5's gradient, a bf16
-train step, and an fp32 trunk under the fused flags (served unfused: the
-kernels take bf16 only).
+train step, an fp32 trunk under the fused flags (served unfused: the
+kernels take bf16 only), and the kernels as ``torch.ops.dir_tpu.*`` ops:
+equal to their launches, ``opcheck`` on CUDA tensors, and configuration B
+exported on the card launching them from its program.
 
 They import nothing of JAX, so they run on a machine without it. Each
 decides inside the test whether a card is present and skips without
@@ -885,3 +887,137 @@ def test_trainer_evaluate_on_card_launches_the_kernels(tmp_path):
     torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 4)
     assert all(bool(torch.isfinite(v)) for v in loss.values())
+
+
+# ------------------------------------- the kernels as torch.library ops
+
+
+@pytest.mark.gpu
+def test_ops_equal_the_launch_path():
+    """Each ``torch.ops.dir_tpu.*`` op on CUDA tensors: bit-equal to the
+    kernel's launch on the same operands, and counted as one launch."""
+    dev = _cuda_or_skip()
+    rng = np.random.RandomState(30)
+    for bands, shape, mid in ((0, (2, 64, 64, 256), 64),
+                              (4, (2, 32, 32, 512), 128)):
+        x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        ops = fb.kernel_operands(*_folded(rng, shape[-1], mid, shape[-1],
+                                          False, dev), bands=bands)
+        f = fb.fused_bottleneck_infer
+        before = f.launches + f.streamed_launches
+        out = fb.call(x, ops, bands)
+        assert f.launches + f.streamed_launches == before + 1
+        assert torch.equal(out, fb.launch(x, ops, bands))
+
+    x, ws, scales = _int8_inputs(31, (2, 64, 64, 256), 64, 256, True, dev)
+    ops = q8.kernel_operands(*ws[:6], *scales, *ws[6:])
+    before = q8.fused_bottleneck_int8_infer.launches
+    out = q8.call(x, ops)
+    assert q8.fused_bottleneck_int8_infer.launches == before + 1
+    assert torch.equal(out, q8.launch(x, ops))
+
+    ws = _folded(rng, 64, 64, 256, True, dev)
+    g1 = torch.ones(64, device=dev)
+    t1 = torch.zeros(64, device=dev)
+    x = torch.from_numpy(rng.randn(2, 64, 64, 64).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    ops = st.kernel_operands(g1, t1, *ws)
+    before = st.fused_stem_bottleneck.launches
+    out = st.call(x, ops)
+    assert st.fused_stem_bottleneck.launches == before + 1
+    assert torch.equal(out, st.launch(x, ops))
+
+    uv = torch.from_numpy(rng.uniform(-0.9, 0.9, (4, 21, 2)).astype(
+        np.float32)).to(dev)
+    feat = torch.from_numpy(rng.randn(4, 21, 64).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    before = bs.bone_splat.launches
+    out = torch.ops.dir_tpu.bone_splat(uv, feat, 32, 2.0)
+    assert bs.bone_splat.launches == before + 1
+    assert torch.equal(out, bs._launch(uv, feat, 32, 2.0))
+
+
+@pytest.mark.gpu
+def test_opcheck_on_the_cuda_implementations():
+    """``torch.library.opcheck`` of each op on CUDA tensors: schema, fake
+    implementation against the kernel's output, the autograd registration
+    of K5."""
+    dev = _cuda_or_skip()
+    rng = np.random.RandomState(32)
+    x = torch.from_numpy(rng.randn(1, 16, 16, 64).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    op = fb.kernel_operands(*_folded(rng, 64, 32, 64, False, dev), bands=0)
+    torch.library.opcheck(torch.ops.dir_tpu.fused_bottleneck.default,
+                          (x, op.image, op.b1, op.b2, op.b3, op.bd, op.mid,
+                           op.o, 0))
+    x, ws, scales = _int8_inputs(33, (1, 16, 16, 64), 32, 64, False, dev)
+    op = q8.kernel_operands(*ws[:6], *scales, *ws[6:])
+    torch.library.opcheck(torch.ops.dir_tpu.fused_bottleneck_int8.default,
+                          (x, *op[:10], op.mid, op.o))
+    ws = _folded(rng, 16, 16, 64, True, dev)
+    op = st.kernel_operands(torch.ones(16, device=dev),
+                            torch.zeros(16, device=dev), *ws)
+    x = torch.from_numpy(rng.randn(1, 16, 16, 16).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    torch.library.opcheck(torch.ops.dir_tpu.fused_stem_bottleneck.default,
+                          (x, op.image, op.vec, op.gt, op.mid, op.o))
+    uv = torch.from_numpy(rng.uniform(-0.9, 0.9, (2, 21, 2)).astype(
+        np.float32)).to(dev).requires_grad_(True)
+    feat = torch.from_numpy(rng.randn(2, 21, 16).astype(np.float32)).to(
+        dev).requires_grad_(True)
+    torch.library.opcheck(torch.ops.dir_tpu.bone_splat.default,
+                          (uv, feat, 16, 1.5))
+
+
+@pytest.mark.gpu
+def test_config_b_artifact_launches_the_kernels():
+    """Configuration B exported on the card (symbolic batch): its graph
+    names the ops, and each call of the program launches K1 2, K2 3 and K5
+    4 times, from the counters in the ops' CUDA implementations; its
+    outputs equal the live model's."""
+    _cuda_or_skip()
+    from dir_tpu_torch.serve import (CONFIG_B, build_flagship,
+                                     export_program, make_infer, op_counts)
+
+    model, _, ml, mr = build_flagship(device="cuda", seed=0, **CONFIG_B)
+    program = export_program(model, ml, mr)
+    assert op_counts(program) == {"fused_bottleneck": 5,
+                                  "fused_bottleneck_int8": 0,
+                                  "fused_stem_bottleneck": 0,
+                                  "bone_splat": 4}
+    module = program.module()
+    img = torch.randn(3, 256, 256, 3,
+                      generator=torch.Generator().manual_seed(1)).cuda()
+    f = fb.fused_bottleneck_infer
+    before = (f.launches, f.streamed_launches, bs.bone_splat.launches)
+    with torch.inference_mode():
+        out = module(img)
+        torch.cuda.synchronize()
+    assert (f.launches - before[0], f.streamed_launches - before[1],
+            bs.bone_splat.launches - before[2]) == (2, 3, 4)
+    want = make_infer(model, ml, mr)(img)
+    for key, value in want["stages"][-1].items():
+        # the same ops on the same tensors: measured equal
+        assert torch.equal(out["stages"][-1][key], value), key
+
+
+@pytest.mark.gpu
+def test_bone_splat_op_gradient_is_the_plain_version():
+    """The gradient of ``torch.ops.dir_tpu.bone_splat`` (its
+    ``register_autograd``) on the card equals the plain version's gradient
+    on the card, bit for bit: both differentiate the same plain graph."""
+    dev = _cuda_or_skip()
+    rng = np.random.RandomState(34)
+    uv = torch.from_numpy(rng.uniform(-0.9, 0.9, (4, 21, 2)).astype(
+        np.float32)).to(dev).requires_grad_(True)
+    feat = torch.from_numpy(rng.randn(4, 21, 64).astype(np.float32)).to(
+        dev).requires_grad_(True)
+    g = torch.from_numpy(rng.randn(4, 16, 16, 1280).astype(np.float32)).to(
+        dev)
+    got = torch.autograd.grad(torch.ops.dir_tpu.bone_splat(uv, feat, 16, 1.0),
+                              (uv, feat), g)
+    want = torch.autograd.grad(bs.bone_splat_plain(uv, feat, 16, 1.0),
+                               (uv, feat), g)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
