@@ -41,7 +41,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      and 8) and C (single flight) on a local port: batch 1, batch 8 and 8
      concurrent batch-1 requests, every response held against the live
      model, the kernels' launches per dispatch from their counters, the
-     median HTTP latency per request shape and the CUDA operations per
+     HTTP latency per request shape (min, median, p90, max over at least
+     50 requests) beside the same calls in process, and the CUDA operations per
      request of artifact and live model; then the infer app on one seeded
      image (full depth, fp32);
   5. train the full-width flagship on the card: configuration T (bf16
@@ -191,7 +192,10 @@ ARTIFACT_OPS = {
 # wrong reference size or a row given to another request.
 HTTP_TOL_MM = 1e-3
 HTTP_TOL_MAP = 1e-4
-HTTP_REPS = 5
+# Requests timed for each request shape (a burst counts its 8), and calls
+# of the artifact and of the live model in process, beside them
+HTTP_REQUESTS = 50
+IN_PROCESS_REPS = 20
 HTTP_WINDOW_MS = 3.0
 # The fp32 trunk under the fused flags against the same model without them:
 # the same fp32 computation, up to cuDNN's choice of algorithm.
@@ -1362,6 +1366,25 @@ def as_response(out: dict) -> dict:
     return {k: v.float().cpu().numpy() for k, v in resp.items()}
 
 
+def spread(times) -> dict:
+    """Count, min, median, p90 and max of a list of milliseconds."""
+    t = sorted(times)
+    return {"n": len(t), "min": t[0], "median": t[len(t) // 2],
+            "p90": t[min(len(t) - 1, (9 * len(t)) // 10)], "max": t[-1]}
+
+
+def time_calls(fn, reps: int = IN_PROCESS_REPS) -> list:
+    """Host-clock milliseconds of ``reps`` calls of ``fn``, each waited for
+    (``fn`` brings its result to the host)."""
+    times = []
+    with torch.inference_mode():
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
 def http_session(mods, path: str, name: str, live_infer, images: dict,
                  microbatch: int, window_ms: float, buckets) -> dict:
     """Serve the artifact at ``path`` through ``apps/serve_http.py``'s
@@ -1457,7 +1480,9 @@ def http_session(mods, path: str, name: str, live_infer, images: dict,
             before_stats = stats(url)
             before = kernel_counts(mods)
             times = []
-            for _ in range(HTTP_REPS):
+            reps = (-(-HTTP_REQUESTS // 8) if shape == "8 concurrent batch 1"
+                    else HTTP_REQUESTS)
+            for _ in range(reps):
                 t0 = time.perf_counter()
                 out = run()
                 if shape == "8 concurrent batch 1":
@@ -1472,15 +1497,13 @@ def http_session(mods, path: str, name: str, live_infer, images: dict,
             launched = tuple(a - b for a, b in zip(kernel_counts(mods),
                                                    before))
             per = tuple(n / dispatches for n in launched)
-            times.sort()
-            record["latency_ms"][shape] = times[len(times) // 2]
+            lat = spread(times)
+            record["latency_ms"][shape] = lat
             record["per_dispatch"][shape] = {
                 "launches": per, "dispatches": dispatches,
                 "avg_batch": images_n / dispatches}
-            say(f"artifact {name} over HTTP, {shape}: median "
-                f"{times[len(times) // 2]:.3f} ms per request (min "
-                f"{times[0]:.3f}, max {times[-1]:.3f}, {len(times)} "
-                f"requests); {dispatches} dispatches, avg_batch "
+            say(f"artifact {name} over HTTP, {shape}: ms per request "
+                f"{lat}; {dispatches} dispatches, avg_batch "
                 f"{images_n / dispatches:.2f}; launches per dispatch of "
                 f"{KERNELS} {per}")
             if per != tuple(float(n) for n in EXPECTED[name]):
@@ -1497,6 +1520,17 @@ def http_session(mods, path: str, name: str, live_infer, images: dict,
             record["live_drift"] = {
                 b: response_err(as_response(live_infer(images[b])), ref[b])
                 for b in (1, 8)}
+        # the same requests without HTTP: the artifact and the live model
+        # called in this process, the response's tensors brought to the
+        # host as the server brings them
+        record["in_process_ms"] = {b: {
+            "artifact": spread(time_calls(
+                lambda: as_response(srv.infer(images[b])))),
+            "live": spread(time_calls(
+                lambda: as_response(live_infer(images[b]))))}
+            for b in (1, 8)}
+        say(f"artifact {name}: ms per call in process, batch 1 and 8 "
+            f"{record['in_process_ms']}")
         say(f"artifact {name} over HTTP: max abs err by request shape (mm, "
             f"seg/dense) {by_shape}; the live model against itself at the "
             f"end of the session {record['live_drift']}")

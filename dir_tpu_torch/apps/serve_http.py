@@ -43,7 +43,6 @@ at sizes already warmed.
 import argparse
 import io
 import json
-import os
 import queue
 import threading
 import time
@@ -51,10 +50,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-# Reject /infer bodies beyond this size before buffering them (batch
+# Default limit of an /infer body, rejected before it is buffered (batch
 # 1024 of float32 256x256x3 is ~800 MB; anything larger is a mistake
 # or abuse, not a workload this host can hold twice in memory).
-MAX_BODY_BYTES = int(os.environ.get("SERVE_MAX_BODY", str(1 << 30)))
+# ``make_server(max_body=...)`` and ``--max_body`` set another.
+MAX_BODY_BYTES = 1 << 30
 
 
 def _numpy(v) -> np.ndarray:
@@ -223,7 +223,8 @@ class MicroBatcher:
                 slot["event"].set()
 
 
-def make_handler(infer, lock, stats, full: bool, batcher=None):
+def make_handler(infer, lock, stats, full: bool, batcher=None,
+                 max_body: int = MAX_BODY_BYTES):
     class Handler(BaseHTTPRequestHandler):
         # quiet per-request stderr lines (stats endpoint replaces them)
         def log_message(self, fmt, *args):  # noqa: N802
@@ -258,10 +259,10 @@ def make_handler(infer, lock, stats, full: bool, batcher=None):
                 return
             try:
                 n = int(self.headers.get("Content-Length", "0"))
-                if n > MAX_BODY_BYTES:
+                if n > max_body:
                     self._send(413, json.dumps(
                         {"error": f"body {n} B exceeds the "
-                                  f"{MAX_BODY_BYTES} B limit"}).encode(),
+                                  f"{max_body} B limit"}).encode(),
                         "application/json")
                     return
                 img = np.load(io.BytesIO(self.rfile.read(n)),
@@ -295,23 +296,27 @@ def make_handler(infer, lock, stats, full: bool, batcher=None):
     return Handler
 
 
-def make_server(artifact: str, host: str = "127.0.0.1", port: int = 8000,
+def make_server(artifact, host: str = "127.0.0.1", port: int = 8000,
                 full: bool = False, max_batch: int = 0,
-                window_ms: float = 3.0, buckets=()):
+                window_ms: float = 3.0, buckets=(),
+                max_body: int = MAX_BODY_BYTES):
     """Build (but don't start) the server; also the test entry point.
 
-    ``max_batch > 0`` enables request micro-batching (see MicroBatcher);
-    0 keeps the single-flight path."""
+    ``artifact`` is the path of an exported artifact, or the callable that
+    ``serve.load`` returned for one. ``max_batch > 0`` enables request
+    micro-batching (see MicroBatcher); 0 keeps the single-flight path. An
+    /infer body above ``max_body`` bytes is answered 413 unread."""
     from dir_tpu_torch import serve
 
-    infer = serve.load(artifact)
+    infer = serve.load(artifact) if isinstance(artifact, str) else artifact
     lock = threading.Lock()
     stats = {"requests": 0, "images": 0, "dispatches": 0, "lat_sum": 0.0}
     batcher = (MicroBatcher(infer, lock, stats, full, max_batch,
                             window_ms, buckets)
                if max_batch > 0 else None)
     srv = ThreadingHTTPServer(
-        (host, port), make_handler(infer, lock, stats, full, batcher))
+        (host, port),
+        make_handler(infer, lock, stats, full, batcher, max_body))
     srv.infer = infer  # exposed for warmup
     srv.batcher = batcher
     return srv
@@ -346,6 +351,9 @@ def main(argv=None):
     ap.add_argument("--window_ms", type=float, default=3.0,
                     help="how long a micro-batch waits for more "
                          "requests after the first arrives")
+    ap.add_argument("--max_body", type=int, default=MAX_BODY_BYTES,
+                    help="largest /infer body in bytes; a larger one is "
+                         "answered 413")
     opt = ap.parse_args(argv)
 
     from dir_tpu_torch.utils.logger import setup_logger
@@ -356,7 +364,7 @@ def main(argv=None):
     # to a warmed size
     srv = make_server(opt.artifact, opt.host, opt.port, opt.full,
                       max_batch=opt.microbatch, window_ms=opt.window_ms,
-                      buckets=warm)
+                      buckets=warm, max_body=opt.max_body)
     warmup(srv.infer, warm, logger.info)
     logger.info("serving %s on %s:%d", opt.artifact, opt.host, opt.port)
     srv.serve_forever()

@@ -16,7 +16,6 @@ you serve on, with the torch version you serve with.
 from __future__ import annotations
 
 import io
-import math
 from typing import Callable, Optional
 
 import numpy as np
@@ -28,6 +27,7 @@ from dir_tpu_torch.device import no_tf32, resolve_device
 from dir_tpu_torch.mano.assets import (ManoModel, fix_left_shapedirs,
                                        load_mano_pair, synthetic_mano)
 from dir_tpu_torch.ops import quant
+from dir_tpu_torch.weights import random_init_  # noqa: F401 (re-export)
 
 # The keyword arguments of :func:`build_flagship` that select configuration B.
 CONFIG_B = {"fused_l2_bands": 4, "fused_splat_conv": False,
@@ -40,67 +40,10 @@ CONFIG_C = {"fused_bottleneck_eval": False, "quant_backbone_eval": True,
             "quant_static": True, "quant_fused": True,
             "quant_fused_l2_bands": 4}
 
-# Linear layers that regress MANO parameters / the offset start near zero.
-_HEAD_NAMES = ("mano_left", "mano_right", "offset")
 # Bias of the MANO parameter heads set by :func:`condition_random_`: the
 # identity 6D root and a camera scale at which the hand spans about half
 # the crop.
 _MANO_HEAD_BIAS = {0: 1.0, 4: 1.0, 61: 5.0}
-
-
-def random_init_(model: nn.Module, seed: int) -> nn.Module:
-    """Seeded random weights following the JAX package's initializers:
-    truncated-normal fan-out convs, lecun-normal linear layers, N(0, 1e-3)
-    parameter heads, the graph convs' torch xavier-uniform, and BatchNorm
-    scales and shifts near 1 and 0 (running statistics stay at mean 0,
-    variance 1, as ``init`` leaves them in the JAX package). All draws
-    come from one CPU ``torch.Generator``."""
-    from dir_tpu_torch.models.gcn import PGraphConv
-
-    g = torch.Generator().manual_seed(seed)
-
-    def trunc(w: torch.Tensor, fan: int, scale: float) -> None:
-        # variance_scaling(truncated_normal): the std of the truncated
-        # draw is sqrt(scale / fan)
-        std = math.sqrt(scale / fan) / 0.87962566103423978
-        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
-
-    with torch.no_grad():
-        for name, m in model.named_modules():
-            if isinstance(m, nn.Conv2d):
-                o, _, kh, kw = m.weight.shape
-                trunc(m.weight, o * kh * kw, 2.0)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.Conv1d):
-                trunc(m.weight, m.weight.shape[1], 1.0)
-                m.bias.zero_()
-            elif isinstance(m, nn.Linear):
-                head = name.rsplit(".", 1)[-1]
-                if head in _HEAD_NAMES:
-                    m.weight.normal_(0.0, 1e-3, generator=g)
-                else:
-                    trunc(m.weight, m.weight.shape[1], 1.0)
-                m.bias.zero_()
-            elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
-                m.weight.uniform_(0.8, 1.2, generator=g)
-                m.bias.uniform_(-0.1, 0.1, generator=g)
-            elif isinstance(m, nn.LayerNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-            elif isinstance(m, PGraphConv):
-                _, j, cin, cout = m.W.shape
-                bound = 1.414 * math.sqrt(6.0 / (j * cin * cout
-                                                 + 2 * cin * cout))
-                m.W.uniform_(-bound, bound, generator=g)
-                m.e_0.fill_(1.0)
-                m.e_1.fill_(1.0)
-                m.bias.uniform_(-1 / math.sqrt(j), 1 / math.sqrt(j),
-                                generator=g)
-        for name, p in model.named_parameters():
-            if name.endswith("spatial_pos_embed"):
-                p.zero_()
-    return model
 
 
 def condition_random_(model: DIR, mano_left: ManoModel,

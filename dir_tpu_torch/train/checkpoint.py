@@ -135,12 +135,11 @@ def load_model_weights(model: torch.nn.Module, spec: str,
                        seed: int = 0) -> str:
     """Fill ``model`` (a DIR) with the weights an app's ``--model`` names
     and return what was loaded: ``random`` (seeded random weights,
-    ``serve.random_init_``), a reference ``.pth``
+    ``weights.random_init_``), a reference ``.pth``
     (:func:`load_torch_dir_checkpoint`), or a port checkpoint given as
     ``<ckpt_dir>/<name>``, ``<ckpt_dir>/<name>.pt`` or ``<ckpt_dir>`` (its
     ``latest``). A conv7 stem is rewritten for an s2d model."""
-    from dir_tpu_torch.serve import random_init_
-    from dir_tpu_torch.weights import adapt_stem_s2d
+    from dir_tpu_torch.weights import adapt_stem_s2d, random_init_
 
     if spec == "random":
         random_init_(model, seed)

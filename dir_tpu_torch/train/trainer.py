@@ -26,7 +26,6 @@ from dir_tpu_torch.config import Config, save_yaml
 from dir_tpu_torch.device import no_tf32, resolve_device
 from dir_tpu_torch.mano.assets import ManoModel
 from dir_tpu_torch.models.dir import DIR
-from dir_tpu_torch.serve import random_init_
 from dir_tpu_torch.train import checkpoint as ckpt
 from dir_tpu_torch.train import evaluate
 from dir_tpu_torch.train.state import create_train_state, make_optimizer
@@ -165,7 +164,7 @@ class Trainer:
 
         model = DIR(c.model)
         if init_state_dict is None:
-            random_init_(model, c.train.seed)
+            weights.random_init_(model, c.train.seed)
         else:
             if c.model.backbone_stem == "s2d":
                 init_state_dict = weights.adapt_stem_s2d(init_state_dict)

@@ -15,14 +15,20 @@ State carried across as well: the JAX package's ``quant_stats`` collection
 (the calibrated activation maxes of int8 static serving) and the port's
 ``ActAmax`` buffers are turned into each other by the same kind of table
 (:func:`quant_mapping`), so both packages can serve with the same scales.
+
+Seeded random weights (:func:`random_init_`) follow the JAX package's
+initializers; the apps' ``--model random``, the Trainer and the flagship
+builder start from them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 
 class Entry(NamedTuple):
@@ -370,3 +376,62 @@ def jax_opt_state_to_torch(opt_state_numpy, model: torch.nn.Module,
             "exp_avg_sq": exp_avg_sq[name].to(p.device, p.dtype),
         }
     return step
+
+
+# Linear layers that regress MANO parameters / the offset start near zero.
+_HEAD_NAMES = ("mano_left", "mano_right", "offset")
+
+
+def random_init_(model: nn.Module, seed: int) -> nn.Module:
+    """Seeded random weights following the JAX package's initializers:
+    truncated-normal fan-out convs, lecun-normal linear layers, N(0, 1e-3)
+    parameter heads, the graph convs' torch xavier-uniform, and BatchNorm
+    scales and shifts near 1 and 0 (running statistics stay at mean 0,
+    variance 1, as ``init`` leaves them in the JAX package). All draws
+    come from one CPU ``torch.Generator``."""
+    from dir_tpu_torch.models.gcn import PGraphConv
+
+    g = torch.Generator().manual_seed(seed)
+
+    def trunc(w: torch.Tensor, fan: int, scale: float) -> None:
+        # variance_scaling(truncated_normal): the std of the truncated
+        # draw is sqrt(scale / fan)
+        std = math.sqrt(scale / fan) / 0.87962566103423978
+        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
+
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, nn.Conv2d):
+                o, _, kh, kw = m.weight.shape
+                trunc(m.weight, o * kh * kw, 2.0)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.Conv1d):
+                trunc(m.weight, m.weight.shape[1], 1.0)
+                m.bias.zero_()
+            elif isinstance(m, nn.Linear):
+                head = name.rsplit(".", 1)[-1]
+                if head in _HEAD_NAMES:
+                    m.weight.normal_(0.0, 1e-3, generator=g)
+                else:
+                    trunc(m.weight, m.weight.shape[1], 1.0)
+                m.bias.zero_()
+            elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
+                m.weight.uniform_(0.8, 1.2, generator=g)
+                m.bias.uniform_(-0.1, 0.1, generator=g)
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, PGraphConv):
+                _, j, cin, cout = m.W.shape
+                bound = 1.414 * math.sqrt(6.0 / (j * cin * cout
+                                                 + 2 * cin * cout))
+                m.W.uniform_(-bound, bound, generator=g)
+                m.e_0.fill_(1.0)
+                m.e_1.fill_(1.0)
+                m.bias.uniform_(-1 / math.sqrt(j), 1 / math.sqrt(j),
+                                generator=g)
+        for name, p in model.named_parameters():
+            if name.endswith("spatial_pos_embed"):
+                p.zero_()
+    return model

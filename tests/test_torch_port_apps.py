@@ -1,22 +1,18 @@
 """The port's apps and their helpers on the CPU, against ``dir_tpu``:
-the HTTP server and its micro-batcher (``dir_tpu_torch/apps/serve_http.py``),
-the export, infer, demo and train CLIs, the reference ``.pth`` loader, the
+the HTTP server's micro-batcher (``dir_tpu_torch/apps/serve_http.py``),
+the infer, demo and train CLIs, the reference ``.pth`` loader, the
 rasterizer, the mesh overlay, the InterHand converter and the profiling
-timer.
+timer. The export CLI and the HTTP server run on configuration B's
+artifact in ``test_torch_port_artifact.py``.
 
-The CLI smokes run the tiny backbone with ``--device cpu``; an artifact of
-even the tiny DIR is about 310 MB (the decoder's parameters at fp32), so
-one export serves the HTTP tests.
+The CLI smokes run the tiny backbone with ``--device cpu``.
 """
 
-import io
 import json
 import os
 import pickle
 import sys
 import threading
-import urllib.error
-import urllib.request
 
 import cv2 as cv
 import jax
@@ -37,7 +33,6 @@ from dir_tpu.utils.visualize import render_mesh_overlay as jrender_overlay
 
 from dir_tpu_torch import serve
 from dir_tpu_torch.apps import demo as demo_app
-from dir_tpu_torch.apps import export as export_app
 from dir_tpu_torch.apps import infer as infer_app
 from dir_tpu_torch.apps import serve_http
 from dir_tpu_torch.apps import train as train_app
@@ -160,116 +155,6 @@ def test_rows_route_back_per_request_after_fallback():
         assert got in ({0.0, 1.0, 2.0}, {0.0, 1.0}), got
     finally:
         batcher.stop()
-
-
-# ------------------------------------------- export CLI and the HTTP server
-
-
-@pytest.fixture(scope="module")
-def artifact(tmp_path_factory):
-    """The export CLI at the tiny backbone, symbolic batch, ``--check``
-    (the reloaded artifact against the live model); the live model of the
-    same seeded weights beside it."""
-    path = str(tmp_path_factory.mktemp("artifact") / "dir.pt2")
-    result = export_app.main([
-        "--device", "cpu", "--synthetic_mano", "--backbone_layers",
-        ",".join(map(str, LAYERS)), "--out", path, "--check"])
-    model = DIR(ModelConfig(backbone_layers=LAYERS))
-    ckpt.load_model_weights(model, "random")
-    ml, mr = port_manos()
-    yield path, result, serve.make_infer(model, ml, mr)
-    os.remove(path)
-
-
-def test_export_cli_check(artifact):
-    _, result, _ = artifact
-    # measured 0: the same ops on the same tensors
-    assert result["check_err"] == 0.0
-    assert result["bytes"] == os.path.getsize(result["path"])
-    assert result["ops"]["fused_bottleneck"] == 0    # layer1 has one block
-
-
-def _post(base, img):
-    buf = io.BytesIO()
-    np.save(buf, img)
-    r = urllib.request.urlopen(f"{base}/infer", buf.getvalue(), timeout=600)
-    return dict(np.load(io.BytesIO(r.read())))
-
-
-def test_http_server_roundtrip(artifact):
-    """healthz, /infer with an .npy body -> .npz equal to the live model,
-    /stats accounting, a 400 on a malformed body and a 413 beyond
-    MAX_BODY_BYTES."""
-    path, _, live = artifact
-    srv = serve_http.make_server(path, port=0, full=True)
-    threading.Thread(target=srv.serve_forever, daemon=True).start()
-    base = f"http://127.0.0.1:{srv.server_address[1]}"
-    try:
-        assert urllib.request.urlopen(f"{base}/healthz").read() == b"ok"
-        img = _image(2, 1)
-        out = _post(base, img)
-        want = live(img)
-        # the artifact equals the live model (measured 0)
-        np.testing.assert_array_equal(
-            out["mesh_xyz_left"],
-            want["stages"][-1]["pd_mesh_xyz_left"].numpy())
-        np.testing.assert_array_equal(out["seg"], want["seg"].numpy())
-        assert out["offset"].shape == (2, 3)
-        stats = json.loads(urllib.request.urlopen(f"{base}/stats").read())
-        assert stats["requests"] == 1 and stats["images"] == 2
-        assert stats["avg_latency_ms"] > 0 and stats["avg_batch"] == 2
-        with pytest.raises(urllib.error.HTTPError) as err:
-            urllib.request.urlopen(f"{base}/infer", b"garbage")
-        assert err.value.code == 400 and "error" in json.loads(
-            err.value.read())
-        req = urllib.request.Request(
-            f"{base}/infer", b"x", headers={
-                "Content-Length": str(serve_http.MAX_BODY_BYTES + 1)})
-        with pytest.raises(urllib.error.HTTPError) as err:
-            urllib.request.urlopen(req)
-        assert err.value.code == 413
-    finally:
-        srv.shutdown()
-        srv.server_close()
-
-
-def test_http_microbatching(artifact):
-    """Concurrent batch-1 requests coalesce into fewer dispatches, pad up
-    to the bucket, and each request gets its own rows, equal to the live
-    model on the four images as one batch of 8 (padded with zeros)."""
-    path, _, live = artifact
-    srv = serve_http.make_server(path, port=0, max_batch=8,
-                                 window_ms=2000.0, buckets=(8,))
-    threading.Thread(target=srv.serve_forever, daemon=True).start()
-    base = f"http://127.0.0.1:{srv.server_address[1]}"
-    try:
-        imgs = [_image(1, 10 + i) for i in range(4)]
-        outs = [None] * 4
-
-        def post(i):
-            outs[i] = _post(base, imgs[i])
-
-        threads = [threading.Thread(target=post, args=(i,))
-                   for i in range(4)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        assert all(o is not None for o in outs)
-        want = live(np.concatenate(imgs))["stages"][-1][
-            "pd_mesh_xyz_left"].numpy()
-        for i, out in enumerate(outs):
-            # rows of another batch composition: the CPU's fp32 sums may
-            # order differently; measured max abs err 0 here
-            np.testing.assert_allclose(out["mesh_xyz_left"],
-                                       want[i:i + 1], rtol=0, atol=1e-6)
-        stats = json.loads(urllib.request.urlopen(f"{base}/stats").read())
-        assert stats["requests"] == 4 and stats["images"] == 4
-        assert stats["dispatches"] < 4 and stats["avg_batch"] > 1
-    finally:
-        srv.batcher.stop()
-        srv.shutdown()
-        srv.server_close()
 
 
 # ------------------------------------------------------- the .pth loader

@@ -4,18 +4,26 @@ on the CPU, against their plain versions and the JAX package.
 
 Each op's CPU implementation is the plain version, bit for bit, and passes
 ``torch.library.opcheck`` with its fake implementation. The exported
-programs of configurations A, B and C (``serve.export_infer``, symbolic
-batch, and B at a fixed batch; C in ``test_torch_port_artifact_int8.py``)
-name the ops the live model runs and, loaded back
-(``serve.load_infer``), equal the live model. B's artifact agrees with
-``dir_tpu``'s exported artifact of the same weights.
+programs of configurations A and B (``serve.export_program``, symbolic
+batch; C and A's fixed batch in ``test_torch_port_artifact_int8.py``) name
+the ops the live model runs and, loaded back (``serve.load``), equal the
+live model. B's artifact agrees with ``dir_tpu``'s exported artifact of
+the same weights and is served over HTTP (``apps/serve_http.py``: round
+trip, micro-batching). The export CLI writes B at a fixed batch from a
+reference-layout ``.pth`` of the same weights.
 
-An export costs 10-30 s here and an artifact about 310 MB (the decoder's
-67 M parameters at fp32), so each is made once per module.
+An export costs 10-30 s here, a load 10-25 s and an artifact about 310 MB
+(the decoder's 67 M parameters at fp32), so each is made once: B's
+symbolic artifact once a session (``torch_port_artifact_helpers.py``).
 """
 
+import io
+import json
 import os
 import sys
+import threading
+import urllib.error
+import urllib.request
 
 import jax
 import jax.numpy as jnp
@@ -26,8 +34,11 @@ import torch
 from dir_tpu import serve as jserve
 from dir_tpu.config import ModelConfig as JModelConfig
 from dir_tpu.models.dir import DIR as JDIR
+from dir_tpu.train import checkpoint as jckpt
 
 from dir_tpu_torch import serve
+from dir_tpu_torch.apps import export as export_app
+from dir_tpu_torch.apps import serve_http
 from dir_tpu_torch.ops import bone_splat as bs
 from dir_tpu_torch.ops import fused_bottleneck as fb
 from dir_tpu_torch.ops import fused_bottleneck_int8 as q8
@@ -35,10 +46,12 @@ from dir_tpu_torch.ops import fused_stem_bottleneck as st
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_port_artifact_helpers import (LAYERS, OPS,  # noqa: E402
-                                         assert_equal,
-                                         fixed_batch_round_trip, image, live)
-from torch_port_artifact_helpers import weights as make_weights  # noqa: E402
-from torch_port_helpers import max_err, torch_threads  # noqa: E402
+                                         assert_equal, check_fixed_batch,
+                                         export_round_trip, image, live)
+from torch_port_artifact_helpers import (exported_b,  # noqa: E402,F401
+                                         seeded_weights)
+from torch_port_helpers import (max_err, numpy_tree,  # noqa: E402
+                                torch_threads)
 from torch_port_train_helpers import jax_manos  # noqa: E402
 
 T = torch.from_numpy
@@ -207,56 +220,36 @@ def test_opcheck_bone_splat():
 
 
 @pytest.fixture(scope="module")
-def weights():
-    return make_weights()
-
-
-def _exported(sd, name):
-    model, ml, mr = live(sd, name)
-    program = serve.export_program(model, ml, mr)
-    return name, model, (ml, mr), program, serve.load_infer(
-        serve.serialize(program))
-
-
-@pytest.fixture(scope="module")
-def exported_b(weights):
-    """Configuration B: the live model, its symbolic-batch program and the
-    artifact loaded back from bytes (shared with the dir_tpu test)."""
-    return _exported(weights[1], "B")
+def exported_a(seeded_weights, tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("artifact_a") / "a.pt2")
+    yield export_round_trip(seeded_weights[1], "A", path)
+    os.remove(path)
 
 
 @pytest.fixture(scope="module", params=["A", "B"])
-def symbolic(request, weights):
-    if request.param == "B":
-        return request.getfixturevalue("exported_b")
-    return _exported(weights[1], request.param)
+def symbolic(request):
+    return request.getfixturevalue(f"exported_{request.param.lower()}")
 
 
 def test_artifact_names_the_kernel_ops(symbolic):
-    name, _, _, program, _ = symbolic
-    assert serve.op_counts(program) == OPS[name]
+    assert serve.op_counts(symbolic.program) == OPS[symbolic.name]
 
 
 def test_artifact_equals_the_live_model_at_any_batch(symbolic):
     """Measured max abs err 0 at batch 1 and 3: the same ops on the same
     tensors, so the bound is equality; the artifact runs the ops' CPU
     implementations as the live model does."""
-    name, model, (ml, mr), _, infer = symbolic
+    name, model, (ml, mr) = symbolic.name, symbolic.model, symbolic.manos
     live_infer = serve.make_infer(model, ml, mr)
     counts = (fb.fused_bottleneck_infer.plain_runs,
               bs.bone_splat.plain_runs)
     for b, seed in ((1, 1), (3, 2)):
         img = image(b, seed)
-        assert_equal(infer(img), live_infer(img))
+        assert_equal(symbolic.infer(img), live_infer(img))
     runs = (fb.fused_bottleneck_infer.plain_runs - counts[0],
             bs.bone_splat.plain_runs - counts[1])
     assert runs == (4 * OPS[name]["fused_bottleneck"],
                     4 * OPS[name]["bone_splat"])
-
-
-def test_fixed_batch_artifact_round_trip_b(exported_b, tmp_path):
-    _, model, (ml, mr), _, _ = exported_b
-    fixed_batch_round_trip(model, ml, mr, str(tmp_path / "b.pt2"))
 
 
 def test_load_rejects_a_foreign_blob():
@@ -275,8 +268,8 @@ def test_load_rejects_a_foreign_blob():
 SLICE_TOL = {"xyz": 5e-6, "uv": 1e-5, "other": 2e-5, "head": 2e-5}
 
 
-def test_artifact_matches_dir_tpu_artifact(weights, exported_b):
-    variables = weights[0]
+def test_artifact_matches_dir_tpu_artifact(seeded_weights, exported_b):
+    variables = seeded_weights[0]
     jl, jr = jax_manos()
     jmodel = JDIR(JModelConfig(backbone_layers=LAYERS,
                                fused_splat_conv=False))
@@ -284,7 +277,7 @@ def test_artifact_matches_dir_tpu_artifact(weights, exported_b):
         jmodel, variables, jl, jr, batch_size=2))
     img = image(2, 4)
     ref = jax.tree.map(np.asarray, jfn(jnp.asarray(img)))
-    out = exported_b[4](img)
+    out = exported_b.infer(img)
     errs = {}
     for r, o in zip(ref["stages"], out["stages"]):
         assert sorted(o) == sorted(r)
@@ -295,3 +288,133 @@ def test_artifact_matches_dir_tpu_artifact(weights, exported_b):
     errs["head"] = max(max_err(out[k], ref[k]) for k in ("seg", "dense"))
     for kind, err in errs.items():
         assert err < SLICE_TOL[kind], (kind, err)
+
+
+# ----------------------------------- the export CLI: B at a fixed batch
+
+
+@pytest.fixture(scope="module")
+def cli_b(seeded_weights, tmp_path_factory):
+    """The export CLI on B's weights as a reference-layout ``.pth``
+    (``dir_tpu``'s export under "net"), B's kernel flags, a fixed batch of
+    2 and ``--check`` (the reloaded artifact against the live model)."""
+    root = tmp_path_factory.mktemp("cli_b")
+    variables = seeded_weights[0]
+    sd = jckpt.export_torch_dir_state(numpy_tree(variables["params"]),
+                                      numpy_tree(variables["batch_stats"]),
+                                      LAYERS)
+    pth = str(root / "DIR.pth")
+    torch.save({"net": {k: torch.from_numpy(np.array(v))
+                        for k, v in sd.items()}}, pth)
+    path = str(root / "b2.pt2")
+    result = export_app.main([
+        "--model", pth, "--device", "cpu", "--synthetic_mano",
+        "--backbone_layers", ",".join(map(str, LAYERS)), "--batch", "2",
+        "--fused_bottleneck", "--fused_l2_bands", "4", "--bone_splat",
+        "--out", path, "--check"])
+    yield path, result
+    os.remove(path)
+
+
+def test_export_cli_check(cli_b):
+    path, result = cli_b
+    # measured 0: the same ops on the same tensors
+    assert result["check_err"] == 0.0
+    assert result["path"] == path
+    assert result["bytes"] == os.path.getsize(path)
+    assert result["ops"] == OPS["B"]
+
+
+def test_fixed_batch_artifact_round_trip_b(seeded_weights, cli_b):
+    """The CLI's artifact against the live B on the same weights (from the
+    state_dict, not the .pth): equal at batch 2, batch 3 refused."""
+    model, ml, mr = live(seeded_weights[1], "B")
+    check_fixed_batch(serve.load(cli_b[0]), model, ml, mr)
+
+
+# ------------------------------------------------------- the HTTP server
+
+
+def _post(base, img):
+    buf = io.BytesIO()
+    np.save(buf, img)
+    r = urllib.request.urlopen(f"{base}/infer", buf.getvalue(), timeout=600)
+    return dict(np.load(io.BytesIO(r.read())))
+
+
+def test_http_server_roundtrip(exported_b):
+    """healthz, /infer with an .npy body -> .npz equal to the live model,
+    /stats accounting, a 400 on a malformed body and a 413 beyond the
+    server's body limit (4 MiB here; batch 2 is 1.5 MB)."""
+    model, (ml, mr) = exported_b.model, exported_b.manos
+    srv = serve_http.make_server(exported_b.infer, port=0, full=True,
+                                 max_body=1 << 22)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        assert urllib.request.urlopen(f"{base}/healthz").read() == b"ok"
+        img = image(2, 1)
+        out = _post(base, img)
+        want = serve.make_infer(model, ml, mr)(img)
+        # the artifact equals the live model (measured 0)
+        np.testing.assert_array_equal(
+            out["mesh_xyz_left"],
+            want["stages"][-1]["pd_mesh_xyz_left"].numpy())
+        np.testing.assert_array_equal(out["seg"], want["seg"].numpy())
+        assert out["offset"].shape == (2, 3)
+        stats = json.loads(urllib.request.urlopen(f"{base}/stats").read())
+        assert stats["requests"] == 1 and stats["images"] == 2
+        assert stats["avg_latency_ms"] > 0 and stats["avg_batch"] == 2
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(f"{base}/infer", b"garbage")
+        assert err.value.code == 400 and "error" in json.loads(
+            err.value.read())
+        req = urllib.request.Request(
+            f"{base}/infer", b"x", headers={
+                "Content-Length": str((1 << 22) + 1)})
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(req)
+        assert err.value.code == 413
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+def test_http_microbatching(exported_b):
+    """Concurrent batch-1 requests coalesce into fewer dispatches, pad up
+    to the bucket, and each request gets its own rows, equal to the live
+    model on the four images as one batch of 8 (padded with zeros)."""
+    model, (ml, mr) = exported_b.model, exported_b.manos
+    srv = serve_http.make_server(exported_b.infer, port=0, max_batch=8,
+                                 window_ms=2000.0, buckets=(8,))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        imgs = [image(1, 10 + i) for i in range(4)]
+        outs = [None] * 4
+
+        def post(i):
+            outs[i] = _post(base, imgs[i])
+
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        assert all(o is not None for o in outs)
+        padded = np.concatenate(imgs + [np.zeros_like(imgs[0])] * 4)
+        want = serve.make_infer(model, ml, mr)(padded)["stages"][-1][
+            "pd_mesh_xyz_left"].numpy()
+        for i, out in enumerate(outs):
+            # rows of another batch composition: the CPU's fp32 sums may
+            # order differently; measured max abs err 0 here
+            np.testing.assert_allclose(out["mesh_xyz_left"],
+                                       want[i:i + 1], rtol=0, atol=1e-6)
+        stats = json.loads(urllib.request.urlopen(f"{base}/stats").read())
+        assert stats["requests"] == 4 and stats["images"] == 4
+        assert stats["dispatches"] < 4 and stats["avg_batch"] > 1
+    finally:
+        srv.batcher.stop()
+        srv.shutdown()
+        srv.server_close()

@@ -1,12 +1,16 @@
 """Shared set-up of the serving-artifact tests
 (``test_torch_port_artifact*.py``): the configurations, the op counts of
-their exported graphs, seeded weights of both packages and the live port
-model."""
+their exported graphs, seeded weights of both packages, the live port
+model, and configuration B's symbolic-batch artifact, exported once a
+session (``exported_b``): an export of even the tiny DIR costs 10-30 s
+here and a load 10-25 s."""
 
 import os
 import sys
+from typing import Callable, NamedTuple
 
 import numpy as np
+import pytest
 import torch
 
 from dir_tpu.config import ModelConfig as JModelConfig
@@ -77,14 +81,9 @@ def assert_equal(got: dict, want: dict):
         assert torch.equal(g, w)
 
 
-def fixed_batch_round_trip(model, ml, mr, path):
-    """Export at a fixed batch of 2 through a file: equal to the live model
-    at batch 2; another batch is refused."""
-    blob = serve.export_infer(model, ml, mr, batch_size=2)
-    assert blob.startswith(serve._MAGIC)
-    serve.save(path, blob)
-    del blob
-    infer = serve.load(path)
+def check_fixed_batch(infer, model, ml, mr):
+    """A loaded artifact exported at a fixed batch of 2: equal to the live
+    model at batch 2; another batch is refused."""
     img = image(2, 3)
     assert_equal(infer(img), serve.make_infer(model, ml, mr)(img))
     try:
@@ -92,3 +91,47 @@ def fixed_batch_round_trip(model, ml, mr, path):
     except Exception:  # noqa: BLE001 — the program's shape guard
         return
     raise AssertionError("a fixed-batch artifact took another batch")
+
+
+def fixed_batch_round_trip(model, ml, mr, path):
+    """Export at a fixed batch of 2 through a file and check it
+    (:func:`check_fixed_batch`)."""
+    blob = serve.export_infer(model, ml, mr, batch_size=2)
+    assert blob.startswith(serve._MAGIC)
+    serve.save(path, blob)
+    del blob
+    check_fixed_batch(serve.load(path), model, ml, mr)
+
+
+class Exported(NamedTuple):
+    name: str
+    model: torch.nn.Module      # the live model
+    manos: tuple
+    program: object             # the torch.export program
+    infer: Callable             # the artifact loaded back
+    path: str                   # ... from this file
+
+
+def export_round_trip(sd, name: str, path: str) -> Exported:
+    """Configuration ``name`` on ``sd`` exported with a symbolic batch,
+    written to ``path`` and loaded back from it."""
+    model, ml, mr = live(sd, name)
+    program = serve.export_program(model, ml, mr)
+    serve.save(path, serve.serialize(program))
+    return Exported(name, model, (ml, mr), program, serve.load(path), path)
+
+
+@pytest.fixture(scope="session")
+def seeded_weights():
+    """:func:`weights`, made once a session."""
+    return weights()
+
+
+@pytest.fixture(scope="session")
+def exported_b(seeded_weights, tmp_path_factory):
+    """Configuration B's symbolic-batch artifact, made once a session: the
+    op counts, the round trip, the comparison with ``dir_tpu``'s artifact
+    and the HTTP server all use it."""
+    path = str(tmp_path_factory.mktemp("artifact_b") / "b.pt2")
+    yield export_round_trip(seeded_weights[1], "B", path)
+    os.remove(path)
