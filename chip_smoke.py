@@ -4,6 +4,9 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+On a host with N cards, ``python3 chip_smoke.py --devices N`` runs only the
+data-parallel phase (6b), its ranks over NCCL, one a card.
+
 Phases, in order; any failure ends the run with a non-zero exit code:
   1. require a CUDA device (no CPU fallback), print the card's name and
      power limit, turn TF32 off for the fp32 references;
@@ -68,19 +71,36 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      step, the loader's wait and share, ms per eval batch, the losses, the
      summaries and peak memory; then the train CLI (``apps/train.py``) for
      one epoch of 2 steps of T's flags on the same split;
+  6b. data parallelism (``dir_tpu_torch/parallel/``): (a) configuration T
+     at global batch 64 through ``make_train_step(mesh=...)`` on a mesh of
+     one NCCL rank, 2 warm-up and 3 timed steps, against the same steps
+     without a mesh; (b) two ranks sharing the one card over gloo (CUDA
+     tensors; NCCL refuses two ranks on one card), 32 a rank, 3 steps
+     against the single process on the same global batches, within a bound
+     from the single process's own spread with the batch's halves swapped,
+     both ranks' states bit-identical; then ``apps/train.py``'s main in two
+     gloo ranks, started as torchrun starts them, for one epoch of the
+     Trainer's split with the device pipeline, its in-loop summary against
+     one rank's on the same weights at the ranks' batch of 32. Every step
+     must launch K5 4 times a rank, every eval batch K1 2, K2 3 and K5 4
+     times a rank; prints each backend, ms per step (two processes
+     time-slicing one card in (b): no multi-card step) and the errors;
   7. serve an fp32 trunk under the fused flags (the bf16 kernels' and C's)
      at cut depth: the kernels take bf16 only, so the guards route the
      blocks unfused;
-  8. print the ``kernels`` line (launches of the main path: A, B and C
-     served, the B and C artifacts over HTTP, T and the Trainer), then the
+  8. print the ``parallel`` line, the ``kernels`` line (launches of the
+     main path: A, B and C served, the B and C artifacts over HTTP, T, the
+     Trainer and the data-parallel runs of 6b, over their ranks), then the
      one-line result.
 """
 
+import argparse
 import collections
 import dataclasses
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -200,6 +220,33 @@ HTTP_WINDOW_MS = 3.0
 # The fp32 trunk under the fused flags against the same model without them:
 # the same fp32 computation, up to cuDNN's choice of algorithm.
 F1_RTOL = 1e-5
+# The data-parallel phase: configuration T at global batch 64, warm-up and
+# timed steps of (a), the steps of (b), the seed of its first batch, and the
+# seconds its rank processes may take. On one card (b) runs two gloo ranks
+# sharing it; ``--devices N`` runs N NCCL ranks, one a card.
+DP_WARMUP, DP_STEPS = 2, 3
+DP_SEED = 10
+DP_TIMEOUT = 600
+# Each run is held against the single process's steps without a mesh in
+# three measures: the worst loss term over the steps (relative), the BN
+# running statistics (of each tensor's max) and the parameters (in lr). The
+# bf16 trunk's steps are not reproducible to the bit: the same steps run
+# again moved a loss term by 3.7 % and a statistic by 19 % of its tensor's
+# max after 5 steps (NVIDIA H100 80GB HBM3, 700 W), as cuDNN's and the
+# scatters' atomics sum in another order and Adam's normalized update
+# magnifies the difference. So the bound of each measure is DP_SPREAD_FACTOR
+# times the single process's own spread over the same steps, and at least
+# the floor: (a), one NCCL rank, where every collective is the identity,
+# against the spread of the steps repeated; (b), two ranks (the same
+# computation in another order: global BatchNorm moments summed over ranks,
+# cuDNN at batch 32), against the larger of that spread and the spread under
+# a reordering of the same work, the steps with the batch's halves swapped.
+DP_SPREAD_FACTOR = 4.0
+DP_FLOORS = {"loss": 1e-6, "stats": 1e-5, "param_lr": 1e-2}
+# The two-rank train app's in-loop summary against one rank's on the same
+# weights at batch 32 (each rank's block): the same forwards, the sums
+# added in another order; relative.
+DP_SUMMARY_RTOL = 1e-4
 
 
 def say(msg: str) -> None:
@@ -1081,6 +1128,21 @@ def _instrument(mods, trainer, record: dict, fed: dict):
                                         trainer.preprocess_train)
 
 
+def write_split(data_dir: str, mano_l, mano_r) -> None:
+    """The Trainer's synthetic split (TRAINER_TRAIN train, TRAINER_TEST
+    test samples at 256x256), written by the port's writer."""
+    from dir_tpu_torch.data import synthetic
+
+    t = time.monotonic()
+    ml_cpu, mr_cpu = mano_l.to("cpu"), mano_r.to("cpu")
+    synthetic.generate(data_dir, ml_cpu, mr_cpu, split="train",
+                       num_samples=TRAINER_TRAIN, seed=0)
+    synthetic.generate(data_dir, ml_cpu, mr_cpu, split="test",
+                       num_samples=TRAINER_TEST, seed=1)
+    say(f"trainer: synthetic split written ({TRAINER_TRAIN} train, "
+        f"{TRAINER_TEST} test, 256x256) in {time.monotonic() - t:.1f} s")
+
+
 def trainer_phase(mods):
     """The Trainer on the card: configuration T's model through
     make_data/make_model/train with the device pipeline (2 epochs, a resume,
@@ -1088,7 +1150,6 @@ def trainer_phase(mods):
     launches checked; K1, K2 and K5 held against their plain versions on
     what the last in-loop eval fed them."""
     from dir_tpu_torch.config import Config, DataConfig, TrainConfig
-    from dir_tpu_torch.data import synthetic
     from dir_tpu_torch.models import dir as dir_module
     from dir_tpu_torch.serve import (CONFIG_B, build_flagship,
                                      condition_random_)
@@ -1105,14 +1166,7 @@ def trainer_phase(mods):
                   for k, v in model.state_dict().items()}
     del model
     torch.cuda.empty_cache()
-    t = time.monotonic()
-    ml_cpu, mr_cpu = mano_l.to("cpu"), mano_r.to("cpu")
-    synthetic.generate(data_dir, ml_cpu, mr_cpu, split="train",
-                       num_samples=TRAINER_TRAIN, seed=0)
-    synthetic.generate(data_dir, ml_cpu, mr_cpu, split="test",
-                       num_samples=TRAINER_TEST, seed=1)
-    say(f"trainer: synthetic split written ({TRAINER_TRAIN} train, "
-        f"{TRAINER_TEST} test, 256x256) in {time.monotonic() - t:.1f} s")
+    write_split(data_dir, mano_l, mano_r)
 
     def config(out, epochs, **data):
         return Config(
@@ -1307,6 +1361,453 @@ def trainer_phase(mods):
         if name != "data":
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
     return launches, fed_err, result
+
+
+def dp_batch(i: int) -> dict:
+    """The ``i``-th global batch of the data-parallel phase, on the host."""
+    from dir_tpu_torch.profile_serve import train_batch
+
+    return train_batch(TRAIN_BATCH, seed=DP_SEED + i, device="cpu")
+
+
+def dp_config():
+    """Configuration T's model configuration: bf16 trunk, B's flags (those
+    of ``serve.build_flagship(**CONFIG_B)``)."""
+    from dir_tpu_torch.config import ModelConfig
+    from dir_tpu_torch.serve import CONFIG_B
+
+    return ModelConfig(dtype="bfloat16", fused_bottleneck_eval=True,
+                       **CONFIG_B)
+
+
+def dp_model(state_dict):
+    """Configuration T's model on ``state_dict``, on the card."""
+    from dir_tpu_torch.models.dir import DIR
+
+    model = DIR(dp_config()).cuda()
+    model.load_state_dict(state_dict, strict=True)
+    return model
+
+
+def dp_steps(mods, state_dict, batches, mesh=None, snapshot_at=None):
+    """AdamW steps of T on ``batches`` (global; under ``mesh`` this rank's
+    block of each), through ``make_train_step(mesh=...)``. Returns per step
+    the global loss dict, the host ms to a synchronise and the launches,
+    and the model's state after ``snapshot_at`` steps and at the end (on
+    the host)."""
+    from dir_tpu_torch.config import TrainConfig
+    from dir_tpu_torch.parallel.mesh import shard_batch
+    from dir_tpu_torch.serve import flagship_mano
+    from dir_tpu_torch.train.state import create_train_state, make_optimizer
+    from dir_tpu_torch.train.steps import make_train_step
+
+    mano_l, mano_r = flagship_mano()
+    model = dp_model(state_dict)
+    opt = make_optimizer(model, TrainConfig(), steps_per_epoch=1000)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, model.cfg, mano_l, mano_r,
+                           mesh=mesh)
+    out = {"losses": [], "ms": [], "launches": [], "lr": []}
+    for i, batch in enumerate(batches):
+        block = (shard_batch(batch, mesh) if mesh is not None else
+                 {k: v.cuda() for k, v in batch.items()})
+        torch.cuda.synchronize()
+        before = kernel_counts(mods)
+        t = time.perf_counter()
+        state, loss = step(state, block)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["launches"].append(tuple(a - b for a, b in zip(
+            kernel_counts(mods), before)))
+        out["losses"].append({k: float(v) for k, v in loss.items()})
+        out["lr"].append(opt.param_groups[0]["lr"])
+        if i + 1 == snapshot_at:
+            out["snapshot"] = {k: v.detach().cpu().clone()
+                               for k, v in model.state_dict().items()}
+    out["state"] = {k: v.detach().cpu().clone()
+                    for k, v in model.state_dict().items()}
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_errors(got: dict, want: dict, lr: float, params: set) -> dict:
+    """Two states of T (host ``state_dict``s; ``params`` names the
+    parameters among their keys): the worst BN statistic of each tensor's
+    max and the worst parameter element in units of ``lr``."""
+    errs = {"stats": 0.0, "param_lr": 0.0}
+    for k, w in want.items():
+        if not w.is_floating_point():
+            continue
+        d = float((got[k].double() - w.double()).abs().max())
+        if k in params:
+            errs["param_lr"] = max(errs["param_lr"], d / lr)
+        else:
+            errs["stats"] = max(errs["stats"],
+                                d / max(float(w.abs().max()), 1e-30))
+    return errs
+
+
+def dp_loss_err(got: list, want: list) -> float:
+    """The worst relative error of any loss term over the steps' loss
+    dicts."""
+    return max(abs(g[k] - v) / max(abs(v), 1e-30)
+               for g, w in zip(got, want) for k, v in w.items())
+
+
+def _digest(state: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in state.items():
+        h.update(k.encode())
+        h.update(v.reshape(-1).contiguous().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _dp_rank(rank: int, port: int, world: int, backend: str,
+             state_path: str, out_path: str) -> None:
+    """One rank of (b), ``world`` ranks over ``backend`` on this host's
+    card(s): T's steps on the rank's block of each global batch; writes the
+    steps' record, the state's hash and, on rank 0, the state."""
+    sys.path.insert(0, REPO)
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from dir_tpu_torch.ops import bone_splat as bs
+    from dir_tpu_torch.ops import fused_bottleneck as fb
+    from dir_tpu_torch.ops import fused_bottleneck_int8 as q8
+    from dir_tpu_torch.ops import fused_stem_bottleneck as st
+    from dir_tpu_torch.parallel import mesh as pmesh
+
+    os.environ["LOCAL_WORLD_SIZE"] = str(world)
+    pmesh.init_distributed(f"127.0.0.1:{port}", world, rank,
+                           backend=backend, device="cuda",
+                           timeout=DP_TIMEOUT)
+    try:
+        mesh = pmesh.make_mesh(world)
+        mods = (fb, q8, st, bs)
+        reset_counts(mods)
+        run = dp_steps(mods, torch.load(state_path, weights_only=True),
+                       [dp_batch(i) for i in range(DP_STEPS)], mesh)
+        record = {k: run[k] for k in ("losses", "ms", "launches", "lr")}
+        record.update(backend=dist.get_backend(), device=str(mesh.device),
+                      digest=_digest(run["state"]),
+                      peak_memory_bytes=torch.cuda.max_memory_allocated())
+        if rank == 0:
+            torch.save(run["state"], out_path + ".state.pt")
+        with open(out_path, "w") as f:
+            json.dump(record, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_cli_rank(rank: int, port: int, world: int, argv: list,
+                 out_path: str) -> None:
+    """One rank of the two-rank train app, started as torchrun starts one
+    (its environment, then ``apps/train.py``'s main): each train and eval
+    step's launches and the in-loop summaries are recorded."""
+    sys.path.insert(0, REPO)
+    os.environ.update({"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                       "RANK": str(rank), "WORLD_SIZE": str(world),
+                       "LOCAL_RANK": str(rank),
+                       "LOCAL_WORLD_SIZE": str(world)})
+    from dir_tpu_torch.apps import train as train_app
+    from dir_tpu_torch.ops import bone_splat as bs
+    from dir_tpu_torch.ops import fused_bottleneck as fb
+    from dir_tpu_torch.ops import fused_bottleneck_int8 as q8
+    from dir_tpu_torch.ops import fused_stem_bottleneck as st
+    from dir_tpu_torch.train.trainer import Trainer
+
+    mods = (fb, q8, st, bs)
+    record = {"train": [], "eval": [], "preprocess": [], "summaries": []}
+    fed = {"on": False}
+    make_model = Trainer.make_model
+
+    def instrumented(self, *args, **kw):
+        make_model(self, *args, **kw)
+        _instrument(mods, self, record, fed)
+        real_evaluate = self.evaluate
+
+        def evaluate(*a, **k):
+            record["summaries"].append(real_evaluate(*a, **k))
+            return record["summaries"][-1]
+
+        self.evaluate = evaluate
+
+    Trainer.make_model = instrumented
+    reset_counts(mods)
+    best = train_app.main(argv)
+    record["best"] = best
+    record["launches"] = kernel_counts(mods)
+    with open(out_path, "w") as f:
+        json.dump(record, f)
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback interface."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _spawn_ranks(target, world: int, args_of_rank) -> None:
+    """Start ``world`` spawned processes running ``target(rank, port,
+    world, *args_of_rank(rank))``; wait at most DP_TIMEOUT; a rank that
+    fails, or the time running out, stops them all and raises."""
+    import multiprocessing as mp
+
+    port = free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target,
+                         args=(r, port, world, *args_of_rank(r)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_TIMEOUT
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                raise RuntimeError("data-parallel ranks ran out of time")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise RuntimeError(f"data-parallel ranks exited with {codes}")
+
+
+def dp_phase(mods, world: int = 2, backend: str = "gloo"):
+    """Data parallelism on the card: (a) configuration T's steps through a
+    mesh of one NCCL rank against the same steps without a mesh; (b)
+    ``world`` ranks over ``backend`` (on one card: two gloo ranks sharing
+    it) against the single process on the same global batches; then the
+    train app's main in as many ranks for an epoch of the Trainer phase's
+    split with the device pipeline, its in-loop eval against one rank's on
+    the same weights."""
+    import torch.distributed as dist
+
+    from dir_tpu_torch.config import Config, DataConfig, TrainConfig
+    from dir_tpu_torch.parallel import mesh as pmesh
+    from dir_tpu_torch.serve import CONFIG_B, build_flagship, condition_random_
+    from dir_tpu_torch.train import checkpoint as ckpt
+    from dir_tpu_torch.train.trainer import Trainer
+
+    root = os.path.join(REPO, "build", "chip_smoke_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    model, _, mano_l, mano_r = build_flagship(
+        device="cuda", dtype="bfloat16", seed=0, **CONFIG_B)
+    condition_random_(model, mano_l, mano_r, seed=0)
+    state_dict = {k: v.detach().cpu().clone()
+                  for k, v in model.state_dict().items()}
+    params = {k for k, _ in model.named_parameters()}
+    del model
+    torch.cuda.empty_cache()
+    state_path = os.path.join(root, "state.pt")
+    torch.save(state_dict, state_path)
+    n = DP_WARMUP + DP_STEPS
+    batches = [dp_batch(i) for i in range(n)]
+    result = {}
+
+    # the single process: the reference, the same steps again, and the
+    # first steps with the batches' halves swapped
+    reset_counts(mods)
+    ref = dp_steps(mods, state_dict, batches, snapshot_at=DP_STEPS)
+    again = dp_steps(mods, state_dict, batches, snapshot_at=DP_STEPS)
+    swapped = dp_steps(mods, state_dict, [
+        {k: torch.cat([v[TRAIN_BATCH // 2:], v[:TRAIN_BATCH // 2]])
+         for k, v in b.items()} for b in batches[:DP_STEPS]])
+
+    def against_ref(losses, state, steps):
+        """``dp_errors`` and the worst loss term after ``steps`` steps."""
+        want = ref["state"] if steps == n else ref["snapshot"]
+        errs = dp_errors(state, want, ref["lr"][steps - 1], params)
+        errs["loss"] = dp_loss_err(losses, ref["losses"][:steps])
+        return errs
+
+    repeat_n = against_ref(again["losses"], again["state"], n)
+    repeat_b = against_ref(again["losses"][:DP_STEPS], again["snapshot"],
+                           DP_STEPS)
+    reorder_b = against_ref(swapped["losses"], swapped["state"], DP_STEPS)
+
+    def bounds(*spreads):
+        return {k: max([DP_SPREAD_FACTOR * sp[k] for sp in spreads]
+                       + [DP_FLOORS[k]]) for k in DP_FLOORS}
+
+    def within(errs, bound):
+        return all(errs[k] <= bound[k] for k in bound)
+
+    # (a) one NCCL rank
+    t = time.monotonic()
+    pmesh.init_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+                           device="cuda", timeout=DP_TIMEOUT)
+    try:
+        mesh = pmesh.make_mesh(1)
+        a_backend = dist.get_backend()
+        reset_counts(mods)
+        a = dp_steps(mods, state_dict, batches, mesh=mesh)
+        launches_a = kernel_counts(mods)
+    finally:
+        dist.destroy_process_group()
+    a_errs = against_ref(a["losses"], a["state"], n)
+    a_bounds = bounds(repeat_n)
+    timed = sorted(a["ms"][DP_WARMUP:])
+    ref_timed = sorted(ref["ms"][DP_WARMUP:])
+    say(f"dp (a): backend {a_backend}, a world of {mesh.world} on "
+        f"{mesh.device}: T at batch {TRAIN_BATCH}, {n} steps "
+        f"({DP_WARMUP} warm-up): ms per step {[round(v, 3) for v in a['ms']]}"
+        f" (median of the timed {timed[len(timed) // 2]:.3f}; without a "
+        f"mesh {ref_timed[len(ref_timed) // 2]:.3f}); launches per step of "
+        f"{KERNELS} {a['launches']}; against the same steps without a mesh "
+        f"{a_errs} (worst loss term relative, BN statistics of their max, "
+        f"parameters in lr); the steps without a mesh repeated {repeat_n}; "
+        f"bounds {a_bounds}; {time.monotonic() - t:.1f} s")
+    if any(x != EXPECTED["T"] for x in a["launches"]):
+        raise RuntimeError(f"dp (a): launches per step {a['launches']}")
+    if not within(a_errs, a_bounds):
+        raise RuntimeError("dp (a): a world of 1 differs from no mesh "
+                           "beyond the run-to-run spread")
+    result["a"] = {"backend": a_backend, "world": mesh.world,
+                   "ms_per_step": a["ms"],
+                   "ms_per_step_median": timed[len(timed) // 2],
+                   "no_mesh_ms_per_step": ref["ms"],
+                   "launches_per_step": a["launches"], "errors": a_errs,
+                   "repeat_spread": repeat_n, "bounds": a_bounds}
+    del a, again
+
+    # (b) two gloo ranks on the card
+    t = time.monotonic()
+    outs = [os.path.join(root, f"rank{r}.json") for r in range(world)]
+    _spawn_ranks(_dp_rank, world,
+                 lambda r: (backend, state_path, outs[r]))
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    rank_state = torch.load(outs[0] + ".state.pt", weights_only=True)
+    b_errs = against_ref(ranks[0]["losses"], rank_state, DP_STEPS)
+    b_errs["loss"] = max(dp_loss_err(r["losses"], ref["losses"][:DP_STEPS])
+                         for r in ranks)
+    b_bounds = bounds(repeat_b, reorder_b)
+    identical = len({r["digest"] for r in ranks}) == 1
+    launches_b = tuple(sum(sum(x[i] for x in r["launches"]) for r in ranks)
+                       for i in range(len(KERNELS)))
+    shared = len({r["device"] for r in ranks}) < world
+    say(f"dp (b): backend {ranks[0]['backend']}, {world} ranks on "
+        f"{[r['device'] for r in ranks]}"
+        + (" (cards shared: the step times are processes time-slicing a "
+           "card, no multi-card step)" if shared else "")
+        + f": global batch {TRAIN_BATCH}, {TRAIN_BATCH // world} a rank, "
+        f"{DP_STEPS} steps; "
+        f"ms per step by rank {[[round(v, 1) for v in r['ms']] for r in ranks]}"
+        f"; launches per rank per step of {KERNELS} "
+        f"{[r['launches'] for r in ranks]}; global loss dicts' totals "
+        f"{[[round(sum(d.values()), 6) for d in r['losses']] for r in ranks]}"
+        f" (single process {[round(sum(d.values()), 6) for d in ref['losses'][:DP_STEPS]]});"
+        f" against the single process {b_errs}; the single process "
+        f"repeated {repeat_b}, with the halves swapped {reorder_b}; bounds "
+        f"{b_bounds}; ranks' parameters and buffers bit-identical "
+        f"{identical}; peak memory by rank "
+        f"{[round(r['peak_memory_bytes'] / 2**30, 3) for r in ranks]} GiB; "
+        f"{time.monotonic() - t:.1f} s")
+    for r in ranks:
+        if any(tuple(x) != EXPECTED["T"] for x in r["launches"]):
+            raise RuntimeError(f"dp (b): launches per step {r['launches']}")
+    if not identical or not within(b_errs, b_bounds):
+        raise RuntimeError("dp (b): two ranks differ from the single "
+                           "process beyond the bounds")
+    result["b"] = {"backend": ranks[0]["backend"], "world": world,
+                   "devices": [r["device"] for r in ranks],
+                   "cards_shared": shared,
+                   "losses": [r["losses"] for r in ranks],
+                   "single_process_losses": ref["losses"][:DP_STEPS],
+                   "ms_per_step": [r["ms"] for r in ranks],
+                   "launches_per_step": [r["launches"] for r in ranks],
+                   "errors": b_errs, "repeat_spread": repeat_b,
+                   "reorder_spread": reorder_b, "bounds": b_bounds,
+                   "bit_identical": identical,
+                   "peak_memory_bytes": [r["peak_memory_bytes"]
+                                         for r in ranks]}
+    del rank_state, ref, swapped
+
+    # the train app in two gloo ranks, one epoch of the Trainer phase's split
+    t = time.monotonic()
+    data_dir = os.path.join(REPO, "build", "chip_smoke_trainer", "data")
+    out_dir = os.path.join(root, "cli")
+    argv = ["--data_dir", data_dir, "--synthetic_mano", "--output", out_dir,
+            "--batch_size", str(TRAIN_BATCH), "--epochs", "1", "--dtype",
+            "bfloat16", "--bone_splat", "--fused_bottleneck",
+            "--fused_l2_bands", "4", "--device_pipeline", "--devices",
+            str(world), "--backend", backend]
+    outs = [os.path.join(root, f"cli{r}.json") for r in range(world)]
+    _spawn_ranks(_dp_cli_rank, world, lambda r: (argv, outs[r]))
+    cli = []
+    for path in outs:
+        with open(path) as f:
+            cli.append(json.load(f))
+    summary = cli[0]["summaries"][-1]
+    # one rank on the same weights, at the ranks' batch of 32
+    ckpt_dir = os.path.join(out_dir, "checkpoint")
+    cfg = Config(model=dp_config(), data=DataConfig(
+        data_dir=data_dir, img_size=256, num_workers=4,
+        device_pipeline=True), train=TrainConfig(
+            batch_size=TRAIN_BATCH // world, total_epochs=1,
+            print_every=1, draw_every=0, eval_every_epochs=1,
+            output_dir=os.path.join(root, "one"), continue_train=True,
+            checkpoint=ckpt_dir))
+    one = Trainer(cfg, mano_l, mano_r, device="cuda")
+    one.make_data()
+    one.make_model(init_state_dict=ckpt.load_checkpoint_weights(ckpt_dir))
+    on_same = one.evaluate()
+    del one
+    torch.cuda.empty_cache()
+    s_err = max(abs(summary[k] - v) / abs(v) for k, v in on_same.items())
+    launches_cli = tuple(sum(r["launches"][i] for r in cli)
+                         for i in range(len(KERNELS)))
+    say(f"dp train app: {world} {backend} ranks, one epoch of "
+        f"{TRAINER_TRAIN // TRAIN_BATCH} steps of {TRAIN_BATCH} with the "
+        f"device pipeline: launches per rank per step of {KERNELS} "
+        f"{[[e['launches'] for e in r['train']] for r in cli]}, per eval "
+        f"batch {[[e['launches'] for e in r['eval']] for r in cli]} (rank 0's"
+        f" first is the overlay dump's forward); step ms by rank "
+        f"{[[round(e['ms'], 1) for e in r['train']] for r in cli]}; eval "
+        f"batch ms {[[round(e['ms'], 1) for e in r['eval']] for r in cli]};"
+        f" in-loop joint_mean_all_mm {summary['joint_mean_all_mm']:.4f}, "
+        f"one rank on the same weights at batch {TRAIN_BATCH // world} "
+        f"{on_same['joint_mean_all_mm']:.4f}, worst summary term "
+        f"{s_err:.3g} relative (bound {DP_SUMMARY_RTOL}); "
+        f"{time.monotonic() - t:.1f} s")
+    for r in cli:
+        if any(tuple(e["launches"]) != EXPECTED["T"] for e in r["train"]):
+            raise RuntimeError("dp train app: a step's launches")
+        if not r["eval"] or any(tuple(e["launches"]) != EXPECTED_TRAINER_EVAL
+                                for e in r["eval"]):
+            raise RuntimeError("dp train app: an eval batch's launches")
+    if s_err > DP_SUMMARY_RTOL or not np.isfinite(cli[0]["best"]):
+        raise RuntimeError("dp train app: the in-loop summary differs from "
+                           "one rank's on the same weights")
+    result["train_app"] = {
+        "launches_per_step": [[e["launches"] for e in r["train"]]
+                              for r in cli],
+        "launches_per_eval_batch": [[e["launches"] for e in r["eval"]]
+                                    for r in cli],
+        "step_ms": [[e["ms"] for e in r["train"]] for r in cli],
+        "eval_batch_ms": [[e["ms"] for e in r["eval"]] for r in cli],
+        "summary": summary, "one_rank_summary": on_same,
+        "summary_rel_err": s_err, "seconds": time.monotonic() - t}
+    shutil.rmtree(root, ignore_errors=True)
+    launches = tuple(x + y + z for x, y, z in zip(launches_a, launches_b,
+                                                  launches_cli))
+    return launches, result
 
 
 def cuda_ops(fn) -> int:
@@ -1693,7 +2194,7 @@ def train_cli_phase() -> dict:
     torch.cuda.synchronize()
     launches = kernel_counts((fb, q8, st, bs))
     seconds = time.monotonic() - t
-    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(os.path.join(root, "cli"), ignore_errors=True)
     # the steps, the one in-loop eval batch and the overlay dump's eval
     # forward at step 0
     steps = TRAINER_TRAIN // TRAIN_BATCH
@@ -1764,10 +2265,37 @@ def f1_phase(mods):
     return errs
 
 
-def main() -> int:
+def multi_card(mods, devices: int) -> int:
+    """``--devices N``: the data-parallel phase alone, its ranks over NCCL,
+    one a card, on the Trainer's synthetic split; prints the parallel line
+    and the one-line result."""
+    from dir_tpu_torch.serve import flagship_mano
+
+    root = os.path.join(REPO, "build", "chip_smoke_trainer")
+    shutil.rmtree(root, ignore_errors=True)
+    write_split(os.path.join(root, "data"), *flagship_mano())
+    launches, parallel = dp_phase(mods, devices, "nccl")
+    shutil.rmtree(root, ignore_errors=True)
+    parallel["launches"] = launches
+    print(json.dumps({"parallel": parallel}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--devices", type=int, default=1,
+                    help="above 1: only the data-parallel phase (6b), its "
+                         "ranks over NCCL, one a card")
+    devices = ap.parse_args(argv).devices
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only "
                          "on the card")
+    if devices > torch.cuda.device_count():
+        raise SystemExit(f"chip_smoke: --devices {devices} on "
+                         f"{torch.cuda.device_count()} card(s)")
     sys.path.insert(0, REPO)
     from dir_tpu_torch.ops import bone_splat as bs
     from dir_tpu_torch.ops import cuda_build
@@ -1802,6 +2330,8 @@ def main() -> int:
         f"{time.monotonic() - t_build:.1f} s")
 
     mods = (fb, q8, st, bs)
+    if devices > 1:
+        return multi_card(mods, devices)
     k1 = bottleneck_phase(fb, K1_SHAPE, K1_MID, 0, ("identity", "projection"))
     k2 = bottleneck_phase(fb, K2_SHAPE, K2_MID, K2_BANDS, ("identity",))
     k3 = int8_phase(q8, quant)
@@ -1816,6 +2346,9 @@ def main() -> int:
     launches["T"], train = train_phase(mods)
     launches["trainer"], fed_err, train["trainer"] = trainer_phase(mods)
     artifact["train_cli"] = train_cli_phase()
+    launches["dp"], parallel = dp_phase(mods)
+    shutil.rmtree(os.path.join(REPO, "build", "chip_smoke_trainer"),
+                  ignore_errors=True)
     for key, err in fed_err.items():
         served_err[key] = max(served_err[key], err)
     f1 = f1_phase(mods)
@@ -1826,8 +2359,9 @@ def main() -> int:
     # launches are the main path's, over A's, B's and C's requests, T's
     # train steps and the Trainer's runs. K4 is on no path: its entry holds
     # its standalone check and 0 launches.
-    runs = list(CONFIGS) + ["artifact B", "artifact C", "T", "trainer"]
+    runs = list(CONFIGS) + ["artifact B", "artifact C", "T", "trainer", "dp"]
     expected = dict(EXPECTED, trainer=EXPECTED_TRAINER_EVAL,
+                    dp=EXPECTED_TRAINER_EVAL,
                     **{f"artifact {n}": EXPECTED[n] for n in "BC"})
 
     def entry(key, name, source, replaces, at_shape, **more):
@@ -1876,6 +2410,7 @@ def main() -> int:
     print(json.dumps({"train": train, "fp32_fused_flags_rel_err": f1}),
           flush=True)
     print(json.dumps({"artifact": artifact}), flush=True)
+    print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

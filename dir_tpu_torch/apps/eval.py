@@ -5,7 +5,8 @@ Usage:
     python -m dir_tpu_torch.apps.eval --model <ckpt_dir>/<name> \
         --data_path ./data/interhand2.6m --mano_path ./assets/mano \
         [--bs 64] [--root_joint 0] [--no-scale] [--out <dir>] \
-        [--dtype bfloat16 --fused_bottleneck] [--device cpu]
+        [--dtype bfloat16 --fused_bottleneck] [--device cpu] \
+        [--devices N] [--unroll K]
 
 ``--model`` takes a port checkpoint (``<ckpt_dir>/<name>``, the
 ``<name>.pt`` that the port's Trainer writes, or a checkpoint directory,
@@ -15,6 +16,14 @@ the per-sample error dumps. With ``--resume_every N`` the accumulators are
 saved every N batches to ``<out>/eval_resume.<config hash>.npz``, and a
 rerun with the same configuration resumes from there. Runs on CUDA unless
 ``--device`` names another device.
+
+``--devices N`` evaluates data-parallel over N ranks, one process each
+(started here, or by ``torchrun --nproc_per_node N -m
+dir_tpu_torch.apps.eval``): each rank runs its block of every batch, the
+per-sample errors are gathered in dataset order and rank 0 writes them, so
+the outputs are those of ``--devices 1``. ``--unroll K`` runs K consecutive
+batches per call (their forwards queued back to back, the errors then
+read), with per-batch outputs unchanged.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import argparse
 import hashlib
 import json
 import os
+import sys
 
 import numpy as np
 
@@ -73,17 +83,51 @@ def parse_args(argv=None):
     ap.add_argument("--resume_every", type=int, default=200,
                     help="save the accumulators every N batches and resume "
                          "from them on a rerun (0 disables)")
+    ap.add_argument("--unroll", type=int, default=1,
+                    help="batches per call (per-batch outputs unchanged)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="data-parallel ranks, one process each; each batch "
+                         "is split over them (per-sample outputs unchanged)")
     opt = ap.parse_args(argv)
     if opt.quant_static and not (opt.quant_backbone or opt.quant_decoder
                                  or opt.quant_aux):
         ap.error("--quant_static requires --quant_backbone, "
                  "--quant_decoder and/or --quant_aux")
+    if opt.unroll < 1 or opt.devices < 1:
+        ap.error("--unroll and --devices must be at least 1")
+    if opt.devices > 1:
+        if opt.bs % opt.devices:
+            ap.error("--bs must be divisible by --devices")
+        if opt.fused_bottleneck:
+            # as dir_tpu refuses it: its Pallas kernels do not partition
+            # over a mesh
+            ap.error("--devices does not compose with --fused_bottleneck")
     return opt
 
 
 def main(argv=None) -> dict:
     opt = parse_args(argv)
 
+    import torch
+
+    from dir_tpu_torch.parallel import launch, mesh as pmesh
+
+    mesh = None
+    if pmesh.launched():
+        pmesh.init_distributed(device=opt.device)
+        mesh = pmesh.make_mesh(opt.devices, device=opt.device)
+    elif opt.devices > 1:
+        return launch.run_ranks("dir_tpu_torch.apps.eval",
+                                sys.argv[1:] if argv is None else argv,
+                                opt.devices)
+    try:
+        return _evaluate(opt, mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _evaluate(opt, mesh) -> dict:
     import torch
 
     from dir_tpu_torch.config import ModelConfig
@@ -93,13 +137,17 @@ def main(argv=None) -> dict:
     from dir_tpu_torch.mano.assets import (fix_left_shapedirs, load_mano_pair,
                                            synthetic_mano)
     from dir_tpu_torch.models.dir import DIR
+    from dir_tpu_torch.parallel.mesh import replicate, shard_batch
     from dir_tpu_torch.serve import calibrate_static_scales, make_infer
     from dir_tpu_torch.train import evaluate
     from dir_tpu_torch.train.checkpoint import load_model_weights
     from dir_tpu_torch.utils.logger import setup_logger
 
-    dev = resolve_device(opt.device)
+    dev = mesh.device if mesh is not None else resolve_device(opt.device)
+    lead = mesh is None or mesh.rank == 0
     logger = setup_logger(name="dir_tpu_torch.eval")
+    if not lead:
+        logger.setLevel("WARNING")
     os.makedirs(opt.out, exist_ok=True)
 
     if opt.synthetic_mano:
@@ -132,12 +180,18 @@ def main(argv=None) -> dict:
     logger.info("evaluating %d samples on %s", len(ds), dev)
 
     if opt.quant_static:
-        # one calibration forward on the first batch, built synchronously
+        # one calibration forward on the first batch, built synchronously;
+        # under a mesh every rank calibrates on the whole batch, as dir_tpu
+        # calibrates on the unsharded batch, so the scales agree with no
+        # collective
         first = loader.peek_batch()
         calibrate_static_scales(model, torch.as_tensor(first["img"]),
                                 mano_l, mano_r)
         logger.info("calibrated static int8 scales on one batch of %d",
                     first["img"].shape[0])
+    # rank 0's weights on every rank, and the dynamic int8 scales over the
+    # global batch
+    replicate(model, mesh)
 
     infer = make_infer(model, mano_l, mano_r)
     jreg_l = evaluate.extended_j_regressor(mano_l)
@@ -174,6 +228,8 @@ def main(argv=None) -> dict:
                                resume_path)
 
     def save_resume(batches_done: int) -> None:
+        if not lead:
+            return
         arrs = {k: (np.concatenate(v, axis=0) if v
                     else np.zeros((0,), np.float32))
                 for k, v in dump.items()}
@@ -181,29 +237,47 @@ def main(argv=None) -> dict:
         np.savez(tmp, _batches_done=batches_done, _config=config_fp, **arrs)
         os.replace(tmp, resume_path)
 
-    last_saved = start_batch
-    for bi, batch in enumerate(loader.iter_from(start_batch),
-                               start=start_batch + 1):
-        final = infer(batch["img"])["stages"][opt.stage]
+    def place(batch, key):
+        """This rank's block of ``batch[key]`` on the device."""
+        if mesh is not None:
+            return shard_batch(batch[key], mesh)
+        return torch.as_tensor(batch[key]).to(dev, non_blocking=True)
 
-        def place(key):
-            return torch.as_tensor(batch[key]).to(dev, non_blocking=True)
-
+    def accumulate(batch, final):
         with torch.inference_mode(), no_tf32():
             errs = evaluate.batch_errors(
                 final["pd_mesh_xyz_left"], final["pd_mesh_xyz_right"],
-                final["pd_offset"], place("mesh_3d_left"),
-                place("mesh_3d_right"), place("camera"), jreg_l, jreg_r,
-                root_joint=opt.root_joint, scale_align=opt.scale)
-        n = int(batch["_valid"])
-        for k in dump:
-            dump[k].append(errs[k][:n].cpu().numpy())
+                final["pd_offset"], place(batch, "mesh_3d_left"),
+                place(batch, "mesh_3d_right"), place(batch, "camera"),
+                jreg_l, jreg_r, root_joint=opt.root_joint,
+                scale_align=opt.scale)
+            n = int(batch["_valid"])
+            for k in dump:
+                rows = errs[k] if mesh is None else mesh.gather_rows(errs[k])
+                dump[k].append(rows[:n].cpu().numpy())
+
+    last_saved = start_batch
+    group = []
+    for bi, batch in enumerate(loader.iter_from(start_batch),
+                               start=start_batch + 1):
+        # --unroll: the group's forwards are queued back to back before any
+        # of their errors is read back
+        group.append(batch)
+        if len(group) < opt.unroll and bi < len(loader):
+            continue
+        finals = [infer(place(b, "img"))["stages"][opt.stage]
+                  for b in group]
+        for b, final in zip(group, finals):
+            accumulate(b, final)
+        group = []
         if opt.resume_every and bi - last_saved >= opt.resume_every:
             save_resume(bi)
             last_saved = bi
             logger.info("saved eval accumulators at batch %d", bi)
 
     d = {k: np.concatenate(v, axis=0) for k, v in dump.items()}
+    if not lead:
+        return None
     if opt.resume_every and os.path.exists(resume_path):
         os.remove(resume_path)  # complete: the partial state is ours
     out = opt.out

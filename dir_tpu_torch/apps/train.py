@@ -6,16 +6,21 @@ Usage:
         --mano_path ./assets/mano --output ./output/dir_tpu_torch \
         [--batch_size 64] [--epochs 50] [--lr 5e-4] [--dtype bfloat16] \
         [--resume <ckpt_dir>] [--imagenet <resnet50 state-dict .pth>] \
-        [--device cpu]
+        [--device cpu] [--devices N [--backend gloo]]
 
 Every knob is a flag over the typed Config, or a YAML file (``--config``).
-One process trains on one device: the data-parallel mesh (``--devices``
-above 1) is not ported yet.
+``--devices N`` trains data-parallel over N ranks, one process each
+(``--devices 0``: one a local card): this command starts them, or, run
+under ``torchrun --nproc_per_node N -m dir_tpu_torch.apps.train``, it is
+one of them. ``--batch_size`` is the global batch. The ranks talk over
+NCCL on cards and gloo on the CPU (``--device cpu``); ``--backend gloo``
+lets ranks share a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 
 
 def parse_args(argv=None):
@@ -49,7 +54,12 @@ def parse_args(argv=None):
                     help="torchvision resnet50 state-dict file to seed the "
                          "backbone (models/dir.py:490-498 equivalent)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="data-parallel devices (0 or 1: one)")
+                    help="data-parallel ranks, one process each (0: one a "
+                         "local card, one on the CPU)")
+    ap.add_argument("--backend", type=str, default=None,
+                    choices=["nccl", "gloo"],
+                    help="the ranks' collectives (default: nccl on cards, "
+                         "gloo on the CPU)")
     ap.add_argument("--device", type=str, default=None,
                     help="torch device (default: cuda)")
     ap.add_argument("--config", type=str, default="",
@@ -67,19 +77,29 @@ def parse_args(argv=None):
                     help="micro-batches accumulated into one optimizer "
                          "step (effective batch = batch_size * this)")
     opt = ap.parse_args(argv)
-    if opt.devices > 1:
-        ap.error(f"--devices {opt.devices}: the port trains on one device; "
-                 "data parallelism over a mesh (ROADMAP A12, "
-                 "dir_tpu/parallel/mesh.py) is not ported yet")
+    if opt.devices < 0:
+        ap.error("--devices must be 0 (one rank a local card) or more")
     return opt
 
 
 def main(argv=None) -> float:
     """Train (or with ``--phase test`` evaluate); returns the best (or the
-    final) MPJPE in mm."""
+    final) MPJPE in mm. With ``--devices`` above 1, outside a launched
+    group, it starts the ranks and returns rank 0's result."""
     opt = parse_args(argv)
 
     import torch
+
+    from dir_tpu_torch.parallel import launch, mesh as pmesh
+
+    mesh = None
+    if pmesh.launched():
+        pmesh.init_distributed(backend=opt.backend, device=opt.device)
+        mesh = pmesh.make_mesh(opt.devices, device=opt.device)
+    elif (ranks := launch.rank_count(opt.devices, opt.device)) > 1:
+        return launch.run_ranks("dir_tpu_torch.apps.train",
+                                sys.argv[1:] if argv is None else argv,
+                                ranks)
 
     from dir_tpu_torch.config import (Config, DataConfig, ModelConfig,
                                       TrainConfig, load_yaml)
@@ -119,7 +139,7 @@ def main(argv=None) -> float:
     else:
         mano_l, mano_r = load_mano_pair(cfg.mano_assets)
 
-    trainer = Trainer(cfg, mano_l, mano_r, device=opt.device)
+    trainer = Trainer(cfg, mano_l, mano_r, device=opt.device, mesh=mesh)
     trainer.make_data()
     trainer.make_model()
     if opt.imagenet:
@@ -134,14 +154,18 @@ def main(argv=None) -> float:
                                      strict=True)
         trainer.logger.info("seeded backbone from %s", opt.imagenet)
 
-    if opt.phase == "test":
-        summary = trainer.evaluate(all_stages=True)
-        trainer.logger.info("eval done; final MPJPE %.4f mm",
-                            summary["joint_mean_all_mm"])
-        return summary["joint_mean_all_mm"]
-    best = trainer.train()
-    trainer.logger.info("training done; best MPJPE %.4f mm", best)
-    return best
+    try:
+        if opt.phase == "test":
+            summary = trainer.evaluate(all_stages=True)
+            trainer.logger.info("eval done; final MPJPE %.4f mm",
+                                summary["joint_mean_all_mm"])
+            return summary["joint_mean_all_mm"]
+        best = trainer.train()
+        trainer.logger.info("training done; best MPJPE %.4f mm", best)
+        return best
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -18,9 +18,12 @@ Each random step is split into a *draw* (:func:`draw_augmentation`, from a
 ``torch.Generator`` on the device) and an *apply* (the rest of this module,
 a pure function of the drawn values): the same draws give the same batch
 on any device, and the tests replay the JAX package's draws through the
-apply functions. The warp gathers the four bilinear taps with each tap's
-integer index clipped to the map, as the JAX package does; that is not
-``grid_sample``'s border mode, which clamps the sample coordinate.
+apply functions. Under a data mesh every rank draws the global batch's
+values from a generator seeded alike and applies its block of them to its
+block of the batch, so its rows equal those rows of the one-device run.
+The warp gathers the four bilinear taps with each tap's integer index
+clipped to the map, as the JAX package does; that is not ``grid_sample``'s
+border mode, which clamps the sample coordinate.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch.nn.functional as F
 from dir_tpu_torch.device import float_constant, no_tf32, resolve_device
 from dir_tpu_torch.mano.assets import ManoModel, stack_mano_pair
 from dir_tpu_torch.mano.layer import mano_forward_rotmat_pair
+from dir_tpu_torch.parallel.mesh import Mesh, shard_batch
 from dir_tpu_torch.train.steps import IMAGENET_MEAN, IMAGENET_STD
 
 BLUR_K = 9  # motion-blur kernel size (the reference samples 3..10)
@@ -288,7 +292,7 @@ def preprocess_apply(raw: Dict[str, torch.Tensor], draws, pair: ManoModel,
 
 def make_preprocess_fn(mano_left: ManoModel, mano_right: ManoModel,
                        img_size: int = 256, train: bool = True,
-                       device=None):
+                       device=None, mesh: Mesh | None = None):
     """``preprocess(raw, generator=None, draws=None) -> batch`` on
     ``device`` (CUDA unless the caller names another; raises without a
     card and none named).
@@ -300,19 +304,30 @@ def make_preprocess_fn(mano_left: ManoModel, mano_right: ManoModel,
     ``train`` the augmentation's values come from ``draws`` when given,
     else from ``generator`` (a ``torch.Generator`` on the device). Runs
     in fp32 with TF32 off and returns the model/loss batch on the device.
+
+    ``mesh``: ``raw`` (and ``draws``) are the global batch's on every
+    rank; the values are drawn for the global batch, and this rank's block
+    of both is processed, on the mesh's device.
     """
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     pair = stack_mano_pair(mano_left, mano_right).to(dev)
 
     def preprocess(raw, generator: torch.Generator | None = None,
                    draws: dict | None = None) -> Dict[str, torch.Tensor]:
-        raw = {k: torch.as_tensor(v).to(dev, non_blocking=True)
-               for k, v in raw.items() if k != "_valid"}
+        raw = {k: v for k, v in raw.items() if k != "_valid"}
+        b = len(raw["img"])
+        if mesh is not None:
+            raw = shard_batch(raw, mesh)
+        else:
+            raw = {k: torch.as_tensor(v).to(dev, non_blocking=True)
+                   for k, v in raw.items()}
         if train and draws is None:
             if generator is None:
                 raise ValueError("train=True needs a generator or draws")
-            draws = draw_augmentation(generator, raw["img"].shape[0],
+            draws = draw_augmentation(generator, b,
                                       tuple(raw["img"].shape[1:]))
+        if train and mesh is not None:
+            draws = shard_batch(draws, mesh)
         with no_tf32():
             return preprocess_apply(raw, draws, pair, img_size, train)
 

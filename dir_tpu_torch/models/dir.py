@@ -22,8 +22,8 @@ from dir_tpu_torch.config import ModelConfig
 from dir_tpu_torch.mano.assets import ManoModel, stack_mano_pair
 from dir_tpu_torch.mano.layer import mano_forward_pca6d_pair
 from dir_tpu_torch.models.gcn import ResSimplePGCN
-from dir_tpu_torch.models.layers import (ConvHead, MLP1d, Residual, conv2d,
-                                         upsample2x)
+from dir_tpu_torch.models.layers import (BatchNorm2d, ConvHead, MLP1d,
+                                         Residual, conv2d, upsample2x)
 from dir_tpu_torch.models.resnet import ResNetPyramid
 from dir_tpu_torch.models.transformer import STE
 from dir_tpu_torch.ops.bone_splat import bone_splat, bone_splat_plain
@@ -184,7 +184,7 @@ class RefineStage(nn.Module):
         self.proj_feat_emb = MLP1d(jdim, jdim, jdim, dtype)
         self.fusion = nn.Sequential(
             nn.Conv2d(2 * 20 * jdim, in_ch, 3, padding=1),
-            nn.BatchNorm2d(in_ch), nn.ReLU(), nn.Conv2d(in_ch, in_ch, 1))
+            BatchNorm2d(in_ch), nn.ReLU(), nn.Conv2d(in_ch, in_ch, 1))
         self.regressor = RegressorOffset(cfg)
         # cfg.quant_aux_eval: the 1x1 fusion conv in int8
         self.quant_stats = (ActAmax(("fusion_conv2_in",))

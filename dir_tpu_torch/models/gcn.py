@@ -7,7 +7,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from dir_tpu_torch.models.layers import bn_tokens
+from dir_tpu_torch.models.layers import BatchNorm1d, bn_tokens
 
 # 21-joint hand skeleton edges.
 HAND_EDGES = (
@@ -75,7 +75,7 @@ class GraphConvBlock(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.gconv = PGraphConv(in_features, out_features, adjacency, dtype)
-        self.bn = nn.BatchNorm1d(out_features)
+        self.bn = BatchNorm1d(out_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(bn_tokens(self.gconv(x).to(self.dtype), self.bn))

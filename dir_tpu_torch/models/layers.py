@@ -5,7 +5,8 @@ linear layer casts its input and weights to the module's compute dtype
 when it runs (the trunk dtype, bf16 or fp32), as flax's ``dtype=`` does.
 Conv modules work on NCHW tensors, which the models keep in
 ``torch.channels_last`` memory format. BatchNorm is PyTorch's own
-(eval-mode running statistics, eps 1e-5).
+(eval-mode running statistics, eps 1e-5); under a data mesh of more than
+one rank its training-mode statistics span the global batch.
 """
 
 from __future__ import annotations
@@ -16,6 +17,29 @@ import torch.nn.functional as F
 
 from dir_tpu_torch.ops.quant import (ActAmax, module_act_scale,
                                      module_quant_conv, quant_conv)
+from dir_tpu_torch.parallel.batch_norm import global_batch_norm
+
+
+class _GlobalStats:
+    """PyTorch's BatchNorm, whose training-mode statistics span every rank's
+    block once :func:`~dir_tpu_torch.parallel.mesh.replicate` has handed it a
+    mesh of more than one rank. Without one, or in a world of 1, or in eval
+    mode, it is PyTorch's own forward; the ``state_dict`` is the same."""
+
+    mesh = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.mesh is not None and self.mesh.parallel:
+            return global_batch_norm(x, self, self.mesh)
+        return super().forward(x)
+
+
+class BatchNorm2d(_GlobalStats, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm1d(_GlobalStats, nn.BatchNorm1d):
+    pass
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype) -> torch.Tensor:
@@ -37,7 +61,7 @@ def linear(x: torch.Tensor, lin: nn.Linear, dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
 
 
-def bn_tokens(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
+def bn_tokens(x: torch.Tensor, bn: BatchNorm1d) -> torch.Tensor:
     """BatchNorm1d over the channels of (B, N, C) tokens."""
     return bn(x.transpose(1, 2)).transpose(1, 2)
 
@@ -72,11 +96,11 @@ class Residual(nn.Module):
         names = ("conv1_in", "conv2_in", "conv3_in") + (
             ("skip_in",) if in_ch != out_ch else ())
         self.quant_stats = ActAmax(names) if quant_eval else None
-        self.bn1 = nn.BatchNorm2d(in_ch)
+        self.bn1 = BatchNorm2d(in_ch)
         self.conv1 = ConvHolder(in_ch, half, 1)
-        self.bn2 = nn.BatchNorm2d(half)
+        self.bn2 = BatchNorm2d(half)
         self.conv2 = ConvHolder(half, half, 3)
-        self.bn3 = nn.BatchNorm2d(half)
+        self.bn3 = BatchNorm2d(half)
         self.conv3 = ConvHolder(half, out_ch, 1)
         self.skip_layer = (ConvHolder(in_ch, out_ch, 1)
                            if in_ch != out_ch else None)
@@ -130,7 +154,7 @@ class MLP1d(nn.Sequential):
 
     def __init__(self, in_ch: int, hidden: int, out: int,
                  dtype=torch.float32):
-        super().__init__(nn.Conv1d(in_ch, hidden, 1), nn.BatchNorm1d(hidden),
+        super().__init__(nn.Conv1d(in_ch, hidden, 1), BatchNorm1d(hidden),
                          nn.ReLU(), nn.Conv1d(hidden, out, 1))
         self.dtype = dtype
 
@@ -149,7 +173,7 @@ class ConvHead(nn.Sequential):
                  quant_eval: bool = False, quant_static: bool = False,
                  quant_second: bool = False):
         super().__init__(nn.Conv2d(in_ch, mid, 3, padding=1, bias=first_bias),
-                         nn.BatchNorm2d(mid), nn.ReLU(),
+                         BatchNorm2d(mid), nn.ReLU(),
                          nn.Conv2d(mid, out, 1))
         self.dtype = dtype
         # Inference-only int8 path (cfg.quant_aux_eval): the 3x3 conv with

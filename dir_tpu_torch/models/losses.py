@@ -8,6 +8,14 @@ runs on the raw seg logits; its classes are masked by presence, not skipped
 in Python; gt seg is nearest-downsampled by ``[::stride]`` and gt dense
 resized bilinearly without antialiasing. Every term runs in the dtype of
 its inputs (fp32 in training, fp64 in the parity tests).
+
+Under a data mesh each rank computes its *share* of each term on its block
+of the global batch: shares averaged over the ranks make the global batch's
+loss, and their gradients, averaged as the train step averages them, make
+its gradient. A per-sample mean over equal blocks is its own share. The
+weighted cross-entropy and Lovász-softmax are not per-sample means: their
+normalizers, sort and class presence are the global batch's, and their
+shares carry the factor ``world``.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from dir_tpu_torch.config import ModelConfig
+from dir_tpu_torch.parallel.mesh import Mesh
 
 
 def smooth_l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -68,19 +77,29 @@ def edge_length_loss(coord_out: torch.Tensor, coord_gt: torch.Tensor,
     return torch.stack(diffs).mean()
 
 
+def _parallel(mesh: Mesh | None) -> bool:
+    return mesh is not None and mesh.parallel
+
+
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                           class_weights) -> torch.Tensor:
+                           class_weights, mesh: Mesh | None = None
+                           ) -> torch.Tensor:
     """``nn.CrossEntropyLoss(weight=w)``: the weighted mean of the per-pixel
     NLL, normalized by the summed weights of the labelled classes.
 
     logits: (B, H, W, C); labels: (B, H, W) int. The weights are Python
-    floats, so no host-to-device copy is made."""
+    floats, so no host-to-device copy is made. Under ``mesh`` the
+    normalizer is the global batch's (it carries no gradient) and the
+    result is this rank's share."""
     lab = labels.long()
     nll = -F.log_softmax(logits, dim=-1).gather(-1, lab[..., None])[..., 0]
     pix_w = torch.zeros_like(nll)
     for c, w in enumerate(class_weights):
         pix_w = pix_w + float(w) * (lab == c).to(nll.dtype)
-    return torch.sum(nll * pix_w) / torch.sum(pix_w)
+    if not _parallel(mesh):
+        return torch.sum(nll * pix_w) / torch.sum(pix_w)
+    return (torch.sum(nll * pix_w) / mesh.sum(torch.sum(pix_w))
+            * mesh.world)
 
 
 def _lovasz_grad(gt_sorted: torch.Tensor) -> torch.Tensor:
@@ -94,7 +113,8 @@ def _lovasz_grad(gt_sorted: torch.Tensor) -> torch.Tensor:
                      dim=-1)
 
 
-def lovasz_softmax(probas: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def lovasz_softmax(probas: torch.Tensor, labels: torch.Tensor,
+                   mesh: Mesh | None = None) -> torch.Tensor:
     """Multi-class Lovász-softmax surrogate, classes present only, over the
     whole batch.
 
@@ -102,17 +122,29 @@ def lovasz_softmax(probas: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     the port. labels: (B, H, W) int. Every class is computed and masked by
     presence. The errors of each class are sorted descending by a stable
     sort of their negation, as ``jax.lax.sort`` does; only detached values
-    are sorted, and the Lovász weights are detached."""
+    are sorted, and the Lovász weights are detached.
+
+    Under ``mesh`` the detached errors and the labels of every rank are
+    gathered in batch order, so the sort, the weights and the classes
+    present are the global batch's; the weighted sum stays on this rank's
+    pixels, and the result is this rank's share."""
     c = probas.shape[-1]
     flat = probas.reshape(-1, c).t()                       # (C, N)
     fg = F.one_hot(labels.reshape(-1).long(), c).t().to(flat.dtype)
     errors = (fg - flat).abs()
-    order = torch.argsort(-errors.detach(), dim=-1, stable=True)
-    grad = _lovasz_grad(fg.gather(-1, order))
+    all_errors, all_fg, lo = errors.detach(), fg, 0
+    if _parallel(mesh):
+        all_errors = mesh.gather_rows(all_errors.t()).t()
+        all_fg = mesh.gather_rows(fg.t()).t()
+        lo = mesh.rank * fg.shape[1]
+    order = torch.argsort(-all_errors, dim=-1, stable=True)
+    grad = _lovasz_grad(all_fg.gather(-1, order))
     w = torch.empty_like(grad).scatter_(-1, order, grad)   # unsorted
+    w = w[:, lo:lo + fg.shape[1]]
     losses = torch.sum(torch.relu(errors) * w.detach(), dim=-1)
-    present = (fg.sum(-1) > 0).to(losses.dtype)
-    return torch.sum(losses * present) / torch.clamp(present.sum(), min=1.0)
+    present = (all_fg.sum(-1) > 0).to(losses.dtype)
+    loss = torch.sum(losses * present) / torch.clamp(present.sum(), min=1.0)
+    return loss * mesh.world if _parallel(mesh) else loss
 
 
 # The per-stage outputs the coordinate losses read.
@@ -122,8 +154,10 @@ _STAGE_KEYS = ("pd_joint_uv_left", "pd_joint_uv_right", "pd_mesh_uv_left",
 
 
 def dir_losses(outputs: dict, targets: dict, cfg: ModelConfig,
-               faces_left, faces_right, fused_stages: bool = False) -> dict:
-    """The full DIR loss dict; its values sum to the training loss.
+               faces_left, faces_right, fused_stages: bool = False,
+               mesh: Mesh | None = None) -> dict:
+    """The full DIR loss dict; its values sum to the training loss (under
+    ``mesh``: this rank's shares, see the module's docstring).
 
     fused_stages: each per-stage term is computed once over the stages
     stacked along the batch axis and multiplied by their number (every stage
@@ -153,10 +187,10 @@ def dir_losses(outputs: dict, targets: dict, cfg: ModelConfig,
         mode="bilinear", align_corners=False,
         antialias=False).permute(0, 2, 3, 1)
     loss["seg"] = weighted_cross_entropy(
-        seg_logits, gt_seg, cfg.seg_class_weights) * cfg.seg_weight * \
-        cfg.dense_weight
+        seg_logits, gt_seg, cfg.seg_class_weights, mesh) * \
+        cfg.seg_weight * cfg.dense_weight
     loss["dense"] = smooth_l1(outputs["dense"], gt_dense) * cfg.dense_weight
-    loss["lovasz"] = lovasz_softmax(seg_logits, gt_seg) * \
+    loss["lovasz"] = lovasz_softmax(seg_logits, gt_seg, mesh) * \
         cfg.lovasz_weight * cfg.dense_weight
 
     # per-stage coordinate losses

@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dir_tpu_torch.models.layers import conv2d
+from dir_tpu_torch.models.layers import BatchNorm2d, conv2d
 from dir_tpu_torch.ops.fused_bottleneck import fold_bn, fused_bottleneck_infer
 from dir_tpu_torch.ops import fused_bottleneck_int8 as q8
 from dir_tpu_torch.ops.fused_bottleneck_int8 import Operands, kernel_operands
@@ -67,14 +67,14 @@ class Bottleneck(nn.Module):
             ("down_in",) if downsample else ())
         self.quant_stats = ActAmax(names) if quant_eval else None
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out)
+        self.bn3 = BatchNorm2d(out)
         self.downsample = (nn.Sequential(
             nn.Conv2d(inplanes, out, 1, stride, bias=False),
-            nn.BatchNorm2d(out)) if downsample else None)
+            BatchNorm2d(out)) if downsample else None)
         # K3's operands, kept with what they were made from (k3_operands)
         self._k3_cache = None
 
@@ -288,7 +288,7 @@ class ResNetPyramid(nn.Module):
         self.quant_stats = ActAmax(("conv1_in",)) if quant_stem else None
         self.conv1 = (nn.Conv2d(3, 64, 7, 2, 3, bias=False) if stem == "conv7"
                       else nn.Conv2d(12, 64, 4, 1, 0, bias=False))
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         inplanes = 64
         for stage, (blocks, planes) in enumerate(
                 zip(layers, (64, 128, 256, 512))):

@@ -151,7 +151,12 @@ def quant_conv(x: torch.Tensor, w: torch.Tensor,
 class ActAmax(nn.Module):
     """The activation ``|max|`` of each conv input of one module: a scalar
     fp32 buffer per name, not persistent (no ``state_dict`` entry), and the
-    set of names that a calibration pass or the weight bridge has filled."""
+    set of names that a calibration pass or the weight bridge has filled.
+    Under a data mesh (``parallel.mesh.replicate`` sets ``mesh``) a live
+    ``|max|`` is the global batch's, as a whole-batch reduction over a
+    sharded batch is in the JAX package."""
+
+    mesh = None
 
     def __init__(self, names):
         super().__init__()
@@ -179,6 +184,8 @@ def module_act_scale(stats: Optional[ActAmax], name: str, x: torch.Tensor,
     live = None
     if not static or calibrating:
         live = x.float().abs().max()
+        if stats is not None and stats.mesh is not None:
+            live = stats.mesh.max(live)
     if static or calibrating:
         buf = getattr(stats, name)
         if calibrating:

@@ -6,7 +6,9 @@ model's ``state_dict`` in the layout of the JAX package's
 ``export_torch_dir_state`` (the reference torch layout, which
 ``weights.py`` maps; BatchNorm's step counters are left out, as there),
 the optimizer's ``state_dict`` and the step. ``meta.json`` beside it keeps
-the loop state the JAX package keeps there (``epoch``, ``best``).
+the loop state the JAX package keeps there (``epoch``, ``best``). Under a
+data mesh the ranks hold the same state: rank 0 writes, the others wait
+for it at a barrier, and every rank reads.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import os
 
 import torch
 
+from dir_tpu_torch.parallel.mesh import Mesh
 from dir_tpu_torch.train.state import TrainState
 
 
@@ -30,16 +33,20 @@ def model_state_dict(model: torch.nn.Module) -> dict:
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState,
-                    name: str = "latest") -> str:
+                    name: str = "latest", mesh: Mesh | None = None) -> str:
     """Write ``state`` to ``<ckpt_dir>/<name>.pt`` (through a temporary file,
-    so that a reader never sees half a checkpoint); returns the path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    so that a reader never sees half a checkpoint); returns the path. Under
+    ``mesh`` rank 0 writes and every rank returns once it has."""
     path = _path(ckpt_dir, name)
-    tmp = path + ".tmp"
-    torch.save({"model": model_state_dict(state.model),
-                "optimizer": state.optimizer.state_dict(),
-                "step": int(state.step)}, tmp)
-    os.replace(tmp, path)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save({"model": model_state_dict(state.model),
+                    "optimizer": state.optimizer.state_dict(),
+                    "step": int(state.step)}, tmp)
+        os.replace(tmp, path)
+    if mesh is not None:
+        mesh.barrier()
     return path
 
 
@@ -64,14 +71,18 @@ def load_checkpoint_weights(ckpt_dir: str, name: str = "latest") -> dict:
     return ckpt["model"]
 
 
-def save_meta(ckpt_dir: str, meta: dict) -> None:
+def save_meta(ckpt_dir: str, meta: dict, mesh: Mesh | None = None) -> None:
     """Persist the loop state the checkpoint does not carry (next epoch,
-    best metric), as ``meta.json``."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    tmp = os.path.join(ckpt_dir, "meta.json.tmp")
-    with open(tmp, "w") as f:
-        json.dump(meta, f)
-    os.replace(tmp, os.path.join(ckpt_dir, "meta.json"))
+    best metric), as ``meta.json``; under ``mesh`` as
+    :func:`save_checkpoint` writes."""
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = os.path.join(ckpt_dir, "meta.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(meta, f)
+        os.replace(tmp, os.path.join(ckpt_dir, "meta.json"))
+    if mesh is not None:
+        mesh.barrier()
 
 
 def load_meta(ckpt_dir: str) -> dict:

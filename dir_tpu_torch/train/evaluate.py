@@ -10,7 +10,9 @@
 
 Each per-batch function takes a validity mask, so a final partial batch
 can be padded to a fixed size. Pure tensor math on whatever device the
-inputs lie on.
+inputs lie on. Under a data mesh each rank computes the sums of its block
+(:func:`valid_rows` masks the padding in it) and :func:`global_sums` adds
+them over the ranks, so the accumulators are the global batch's.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from dir_tpu_torch.mano.assets import ManoModel
 from dir_tpu_torch.ops.projection import xyz_to_uv
+from dir_tpu_torch.parallel.mesh import Mesh
 
 
 def extended_j_regressor(model: ManoModel) -> torch.Tensor:
@@ -211,6 +214,25 @@ def online_batch_metrics(pd_joints_left: torch.Tensor,
         out[f"vert_{side}_sum_m"] = torch.sum(v_err * m)
     out["count"] = torch.sum(m)
     return out
+
+
+def valid_rows(n_valid: int, b: int, device,
+               mesh: Mesh | None = None) -> torch.Tensor:
+    """The validity mask of this rank's ``b`` rows of a global batch whose
+    first ``n_valid`` rows are real (the rest pad the last batch): 1.0 for
+    a real row, 0.0 for padding."""
+    start = 0 if mesh is None else mesh.rank * b
+    return (torch.arange(start, start + b, device=device) < n_valid).float()
+
+
+def global_sums(metrics: Dict[str, torch.Tensor],
+                mesh: Mesh | None = None) -> Dict[str, float]:
+    """A per-batch function's sums, added over the ranks in one all-reduce
+    and brought to the host in one copy."""
+    values = torch.stack(list(metrics.values()))
+    if mesh is not None:
+        values = mesh.sum(values)
+    return dict(zip(metrics, values.cpu().tolist()))
 
 
 def summarize_online(acc: Dict[str, float]) -> Dict[str, float]:

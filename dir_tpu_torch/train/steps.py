@@ -9,6 +9,19 @@ runs. On the materialized splat branch with ``use_pallas_splat`` the
 forward launches kernel K5 (four times a step) and its backward runs K5's
 plain version, as the JAX package's ``custom_vjp`` does; the fused
 bottleneck kernels are inference-only and never run here.
+
+Under a data mesh (``parallel/mesh.py``) the step takes this rank's block of
+the global batch (:func:`~dir_tpu_torch.parallel.mesh.shard_batch`) and
+computes what the one-device step computes on the whole batch, as
+``dir_tpu``'s sharded step does: the BatchNorms' statistics and the
+segmentation losses span the global batch, and after the backward (the
+last micro-batch's under ``grad_accum``) one all-reduce averages the
+gradients, so every rank takes the same AdamW step. The gradients are
+all-reduced explicitly, the counterpart of the all-reduce XLA inserts, and
+not through ``DistributedDataParallel``: its bucketed reduction would need
+``find_unused_parameters`` for the modules B's flags leave idle, its
+buffer broadcast would overwrite the global running statistics, and its
+wrapper renames the ``state_dict``.
 """
 
 from __future__ import annotations
@@ -21,6 +34,7 @@ from dir_tpu_torch.config import ModelConfig
 from dir_tpu_torch.device import float_constant, no_tf32, resolve_device
 from dir_tpu_torch.mano.assets import ManoModel
 from dir_tpu_torch.models.losses import dir_losses, total_loss
+from dir_tpu_torch.parallel.mesh import Mesh, average_gradients, replicate
 from dir_tpu_torch.train.state import TrainState
 
 # ImageNet normalization of the data pipeline (RGB order), as
@@ -58,7 +72,8 @@ def _to_device(batch: dict, dev: torch.device) -> dict:
 def make_train_step(model, optimizer: torch.optim.Optimizer,
                     cfg: ModelConfig, mano_left: ManoModel,
                     mano_right: ManoModel, *, unroll: int = 1,
-                    grad_accum: int = 1, device=None) -> Callable:
+                    grad_accum: int = 1, device=None,
+                    mesh: Mesh | None = None) -> Callable:
     """Build the train step: ``step(state, batch) -> (state, loss_dict)``.
 
     ``batch``: ``{"img": (B, H, W, 3)}`` plus every target key
@@ -83,11 +98,17 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     by each step. ``optimizer.lr_schedule`` (from
     :func:`~dir_tpu_torch.train.state.make_optimizer`) sets the lr of each
     step from ``state.step``; without it the groups' lr stays.
+
+    ``mesh``: the data mesh; the step then runs on its device, every leaf
+    of ``batch`` is this rank's block of the global batch (of the second
+    axis with ``unroll`` or ``grad_accum``), the model starts from rank 0's
+    parameters, and the loss dict is the global batch's.
     """
     if unroll > 1 and grad_accum > 1:
         raise ValueError("unroll and grad_accum are mutually exclusive")
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     model.to(dev)
+    replicate(model, mesh)
     mano_left, mano_right = mano_left.to(dev), mano_right.to(dev)
     schedule = getattr(optimizer, "lr_schedule", None)
 
@@ -95,10 +116,12 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
         batch = decode_wire8(batch)
         out = model(batch["img"], mano_left, mano_right)
         loss_dict = dir_losses(out, batch, cfg, mano_left.faces,
-                               mano_right.faces, fused_stages=True)
+                               mano_right.faces, fused_stages=True,
+                               mesh=mesh)
         return total_loss(loss_dict), loss_dict
 
     def update(state: TrainState) -> TrainState:
+        average_gradients(model.parameters(), mesh)
         if schedule is not None:
             lr = schedule(state.step)
             for group in optimizer.param_groups:
@@ -107,11 +130,16 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
         state.step += 1
         return state
 
+    def global_dict(loss_dict: dict) -> dict:
+        """The detached loss dict; under a mesh, the global batch's."""
+        loss_dict = {k: v.detach() for k, v in loss_dict.items()}
+        return loss_dict if mesh is None else mesh.mean_dict(loss_dict)
+
     def one_step(state: TrainState, batch: dict):
         optimizer.zero_grad(set_to_none=True)
         loss, loss_dict = loss_for(batch)
         loss.backward()
-        return update(state), {k: v.detach() for k, v in loss_dict.items()}
+        return update(state), global_dict(loss_dict)
 
     def accum_step(state: TrainState, batches: dict):
         optimizer.zero_grad(set_to_none=True)
@@ -125,7 +153,8 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
         for p in model.parameters():
             if p.grad is not None:
                 p.grad.div_(grad_accum)
-        return update(state), {k: v / grad_accum for k, v in sums.items()}
+        return update(state), global_dict(
+            {k: v / grad_accum for k, v in sums.items()})
 
     def step(state: TrainState, batch: dict):
         batch = _to_device(batch, dev)
@@ -144,14 +173,17 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
 
 
 def make_eval_step(model, mano_left: ManoModel, mano_right: ManoModel, *,
-                   device=None) -> Callable:
+                   device=None, mesh: Mesh | None = None) -> Callable:
     """Build the inference step: ``step(state, img) -> outputs``, the
     eval-mode forward of ``state.model`` (a :class:`TrainState`, or the
     model itself) on a (B, H, W, 3) float image batch, under
     ``torch.inference_mode()`` on ``device`` (CUDA unless the caller names
-    another)."""
-    dev = resolve_device(device)
+    another). ``mesh``: ``img`` is this rank's block, the step runs on the
+    mesh's device from rank 0's parameters, and the outputs are the
+    block's."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     model.to(dev)
+    replicate(model, mesh)
     mano_left, mano_right = mano_left.to(dev), mano_right.to(dev)
 
     def step(state, img) -> dict:

@@ -10,10 +10,16 @@ metric writes ``best``, and ``meta.json`` records the next epoch, the best
 metric and the augmentation generator's state, from which a run resumes.
 The data modules are imported in :meth:`Trainer.make_data`, so importing
 this module needs no cv2.
+
+Under a data mesh (``Trainer(..., mesh=...)``, one process a rank) every
+rank's loader yields the same global batch and each rank trains and
+evaluates on its block of it, as ``dir_tpu``'s multi-process Trainer does;
+rank 0 alone logs and writes checkpoints.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 from typing import Dict
@@ -26,6 +32,7 @@ from dir_tpu_torch.config import Config, save_yaml
 from dir_tpu_torch.device import no_tf32, resolve_device
 from dir_tpu_torch.mano.assets import ManoModel
 from dir_tpu_torch.models.dir import DIR
+from dir_tpu_torch.parallel.mesh import Mesh, shard_batch
 from dir_tpu_torch.train import checkpoint as ckpt
 from dir_tpu_torch.train import evaluate
 from dir_tpu_torch.train.state import create_train_state, make_optimizer
@@ -75,19 +82,32 @@ class Trainer:
     """``Trainer(cfg, mano_left, mano_right).make_data(); .make_model();
     .train()``. Runs on ``device``: CUDA unless the caller names another;
     raises when no card is present and none was named. One MANO pair
-    serves the data and the model."""
+    serves the data and the model. ``mesh``: this rank's data mesh
+    (``parallel.make_mesh``); the Trainer then runs on its device, and
+    ``train.batch_size`` is the global batch, which must divide over the
+    ranks."""
 
     def __init__(self, cfg: Config, mano_left: ManoModel,
-                 mano_right: ManoModel, device=None):
+                 mano_right: ManoModel, device=None,
+                 mesh: Mesh | None = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
+        if mesh is not None and cfg.train.batch_size % mesh.world:
+            raise ValueError(f"batch_size {cfg.train.batch_size} does not "
+                             f"divide over {mesh.world} ranks")
         self.mano_left = mano_left.to(self.device)
         self.mano_right = mano_right.to(self.device)
         os.makedirs(cfg.train.output_dir, exist_ok=True)
-        self.logger = setup_logger(
-            os.path.join(cfg.train.output_dir, "log"),
-            name="dir_tpu_torch.train")
-        save_yaml(cfg, os.path.join(cfg.train.output_dir, "config.yaml"))
+        if mesh is None or mesh.rank == 0:
+            self.logger = setup_logger(
+                os.path.join(cfg.train.output_dir, "log"),
+                name="dir_tpu_torch.train")
+            save_yaml(cfg, os.path.join(cfg.train.output_dir, "config.yaml"))
+        else:   # the other ranks report warnings only
+            self.logger = setup_logger(name="dir_tpu_torch.rank")
+            self.logger.setLevel(logging.WARNING)
         self.start_epoch = 0
         self.best = float("inf")
         self.last_loss = float("nan")
@@ -122,7 +142,7 @@ class Trainer:
             self.preprocess_train, self.preprocess_test = (
                 make_preprocess_fn(self.mano_left, self.mano_right,
                                    img_size=c.data.img_size, train=train,
-                                   device=self.device)
+                                   device=self.device, mesh=self.mesh)
                 for train in (True, False))
             self.aug_generator = torch.Generator(
                 device=self.device).manual_seed(c.train.seed)
@@ -176,9 +196,10 @@ class Trainer:
         self.train_step = make_train_step(
             model, self.optimizer, c.model, self.mano_left, self.mano_right,
             unroll=c.train.steps_per_call, grad_accum=c.train.grad_accum,
-            device=self.device)
+            device=self.device, mesh=self.mesh)
         self.eval_step = make_eval_step(model, self.mano_left,
-                                        self.mano_right, device=self.device)
+                                        self.mano_right, device=self.device,
+                                        mesh=self.mesh)
 
         if c.train.continue_train and c.train.checkpoint:
             self.state = ckpt.restore_checkpoint(c.train.checkpoint,
@@ -219,7 +240,7 @@ class Trainer:
         meta = {"epoch": epoch + 1, "best": self.best}
         if hasattr(self, "aug_generator"):
             meta[AUG_STATE_KEY] = self.aug_generator.get_state().tolist()
-        ckpt.save_meta(ckpt_dir, meta)
+        ckpt.save_meta(ckpt_dir, meta, self.mesh)
 
     def train(self) -> float:
         c = self.cfg
@@ -237,6 +258,9 @@ class Trainer:
                     dev_batch = {k: dev_batch[k] for k in _BATCH_KEYS}
                 else:
                     dev_batch = {k: batch[k] for k in _BATCH_KEYS}
+                    if self.mesh is not None:
+                        dev_batch = shard_batch(dev_batch, self.mesh,
+                                                leading_steps=stacked)
                 self.state, loss_dict = self.train_step(self.state, dev_batch)
                 steps += 1
                 if it % c.train.print_every == 0:
@@ -253,7 +277,8 @@ class Trainer:
                         raise FloatingPointError(
                             f"non-finite loss at epoch {epoch} it {it}; "
                             f"resume from {ckpt_dir}")
-                if c.train.draw_every and it % c.train.draw_every == 0:
+                if (c.train.draw_every and it % c.train.draw_every == 0
+                        and (self.mesh is None or self.mesh.rank == 0)):
                     vis_batch = (dev_batch if self.preprocess_train is not None
                                  else batch)
                     if stacked:
@@ -267,20 +292,22 @@ class Trainer:
             self.logger.info(
                 "epoch %d done in %.1fs (%d steps, loader wait %.1f ms a "
                 "step)", epoch, seconds, steps, wait / max(steps, 1) * 1e3)
-            ckpt.save_checkpoint(ckpt_dir, self.state, "latest")
+            ckpt.save_checkpoint(ckpt_dir, self.state, "latest", self.mesh)
             if (c.train.eval_every_epochs
                     and epoch % c.train.eval_every_epochs == 0):
                 summary = self.evaluate()
                 err = summary["joint_mean_all_mm"]
                 if err < self.best:
                     self.best = err
-                    ckpt.save_checkpoint(ckpt_dir, self.state, "best")
+                    ckpt.save_checkpoint(ckpt_dir, self.state, "best",
+                                         self.mesh)
             self._save_meta(ckpt_dir, epoch)
         return self.best
 
     def _dump_vis(self, batch, epoch: int, it: int):
         """Skeleton overlays of GT against the prediction for the first
-        sample of ``batch``: one eval-mode forward on the current weights."""
+        sample of ``batch``: one eval-mode forward on the current weights
+        (under a mesh, rank 0's, whose block starts with that sample)."""
         from dir_tpu_torch.utils.visualize import save_prediction_grid
 
         vis_dir = os.path.join(self.cfg.train.output_dir, "vis")
@@ -304,7 +331,9 @@ class Trainer:
         """The in-loop metric (``train.inloop_metric``: "benchmark", the
         offline eval's, or "online", the reference Trainer's) over the test
         split. The final refinement stage by default; with ``all_stages``
-        every stage is logged and the final stage's summary returned."""
+        every stage is logged and the final stage's summary returned. Under a
+        mesh each rank evaluates its block of each batch and the sums are
+        the global batch's."""
         dev = self.device
         jreg_l = evaluate.extended_j_regressor(self.mano_left)
         jreg_r = evaluate.extended_j_regressor(self.mano_right)
@@ -315,6 +344,9 @@ class Trainer:
             n_valid = int(batch["_valid"])
             if self.preprocess_test is not None:
                 batch = self.preprocess_test(batch)
+            elif self.mesh is not None:
+                batch = shard_batch({k: batch[k] for k in _EVAL_KEYS},
+                                    self.mesh)
             else:
                 batch = {k: torch.as_tensor(batch[k]).to(dev,
                                                          non_blocking=True)
@@ -322,7 +354,7 @@ class Trainer:
             out = self.eval_step(self.state, batch["img"])
             b = batch["img"].shape[0]
             with torch.inference_mode(), no_tf32():
-                valid = (torch.arange(b, device=dev) < n_valid).float()
+                valid = evaluate.valid_rows(n_valid, b, dev, self.mesh)
                 for si, stage in enumerate(out["stages"][-num_stages:]):
                     if online:
                         metrics = evaluate.online_batch_metrics(
@@ -341,8 +373,8 @@ class Trainer:
                             batch["camera"], jreg_l, jreg_r, valid,
                             root_joint=self.cfg.model.root_joint)
                     # one device-to-host copy per batch and stage
-                    values = torch.stack(list(metrics.values())).cpu()
-                    for k, v in zip(metrics, values.tolist()):
+                    sums = evaluate.global_sums(metrics, self.mesh)
+                    for k, v in sums.items():
                         accs[si][k] = accs[si].get(k, 0.0) + v
         summ = evaluate.summarize_online if online else evaluate.summarize
         summaries = [summ(a) for a in accs]

@@ -365,7 +365,8 @@ def test_demo_cli(tmp_path):
 
 def test_train_cli(tmp_path):
     """One epoch of 2 steps at 64x64 on the synthetic split, its in-loop
-    eval and checkpoints; --devices above 1 names the missing port."""
+    eval and checkpoints; a negative --devices is refused (2 ranks train in
+    tests/test_torch_port_parallel_apps.py)."""
     right = synthetic_mano("right", seed=0)
     left = fix_left_shapedirs(synthetic_mano("left", seed=0), right)
     data = str(tmp_path / "data")
@@ -382,7 +383,8 @@ def test_train_cli(tmp_path):
     assert np.isfinite(best)
     assert os.path.exists(os.path.join(out, "checkpoint", "latest.pt"))
     with pytest.raises(SystemExit):
-        train_app.parse_args(args + ["--devices", "2"])
+        train_app.parse_args(args + ["--devices", "-1"])
+    assert train_app.parse_args(args + ["--devices", "2"]).devices == 2
     import shutil
     shutil.rmtree(out)
 

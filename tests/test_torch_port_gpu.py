@@ -1021,3 +1021,107 @@ def test_bone_splat_op_gradient_is_the_plain_version():
                                (uv, feat), g)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_world_of_one_nccl_step_equals_no_mesh():
+    """Two fp32 train steps of a cut-depth flagship with B's decoder flags
+    through a mesh of one NCCL rank equal the steps without a mesh: a world
+    of 1 makes every collective the identity. cuDNN's and the scatters'
+    atomics sum in another order in each run, so the bound is four times
+    the steps' own spread when repeated without a mesh (losses relative,
+    parameters and BN statistics in each tensor's max), and at least 1e-6
+    of each."""
+    dev = _cuda_or_skip()
+    import socket
+
+    import torch.distributed as dist
+
+    from dir_tpu_torch.config import ModelConfig, TrainConfig
+    from dir_tpu_torch.models.dir import DIR
+    from dir_tpu_torch.parallel import mesh as pmesh
+    from dir_tpu_torch.profile_serve import train_batch
+    from dir_tpu_torch.serve import (CONFIG_B, condition_random_,
+                                     flagship_mano, random_init_)
+    from dir_tpu_torch.train.state import create_train_state, make_optimizer
+    from dir_tpu_torch.train.steps import make_train_step
+
+    ml, mr = (m.to(dev) for m in flagship_mano())
+    base = random_init_(DIR(ModelConfig(
+        backbone_layers=(1, 1, 1, 1), **CONFIG_B)), seed=0).to(dev)
+    condition_random_(base, ml, mr, seed=0)
+    init = {k: v.clone() for k, v in base.state_dict().items()}
+    batches = [train_batch(4, seed=i, device=dev) for i in range(2)]
+
+    def run(mesh):
+        model = DIR(base.cfg).to(dev)
+        model.load_state_dict(init, strict=True)
+        opt = make_optimizer(model, TrainConfig(), 1)
+        state = create_train_state(model, opt)
+        step = make_train_step(model, opt, model.cfg, ml, mr, mesh=mesh)
+        losses = []
+        for b in batches:
+            block = b if mesh is None else pmesh.shard_batch(b, mesh)
+            state, ld = step(state, block)
+            losses.append(float(sum(v.double() for v in ld.values())))
+        return np.array(losses), model.state_dict()
+
+    def diff(a, b):
+        loss = float(np.abs(a[0] - b[0]).max() / np.abs(b[0]).max())
+        state = max(float((a[1][k].double() - w.double()).abs().max()
+                          / max(float(w.double().abs().max()), 1e-30))
+                    for k, w in b[1].items() if w.is_floating_point())
+        return loss, state
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    pmesh.init_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl",
+                           timeout=120)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = pmesh.make_mesh(1)
+        assert (mesh.world, mesh.device.type) == (1, "cuda")
+        got = run(mesh)
+    finally:
+        dist.destroy_process_group()
+    want, again = run(None), run(None)
+    err, spread = diff(got, want), diff(again, want)
+    print(f"a world of 1 against no mesh {err}, no mesh repeated {spread}")
+    for e, sp in zip(err, spread):
+        assert e <= max(4 * sp, 1e-6)
+
+
+@pytest.mark.gpu
+def test_global_batch_norm_matches_sync_batch_norm(tmp_path):
+    """The port's global BatchNorm against PyTorch's ``nn.SyncBatchNorm``
+    (its CUDA statistics kernels, which refuse CPU tensors) in two gloo
+    ranks sharing the card, on the same blocks of an fp32 batch with
+    |mean| > std: outputs, input and parameter gradients and running
+    statistics, each within 1e-5 of the reference's max |value|."""
+    _cuda_or_skip()
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from torch_port_parallel_worker import run_ranks
+
+    from dir_tpu_torch.models.layers import BatchNorm2d
+
+    rng = np.random.RandomState(3)
+    c = 16
+    bn = BatchNorm2d(c)
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, c)))
+        bn.bias.copy_(torch.from_numpy(rng.uniform(-0.5, 0.5, c)))
+        bn.running_mean.copy_(torch.from_numpy(rng.randn(c)))
+        bn.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 2.0, c)))
+    args = {"channels": c, "state": bn.state_dict(),
+            "x": (rng.randn(8, c, 9, 7) * 2 + 3).astype(np.float32),
+            "grad": rng.randn(8, c, 9, 7).astype(np.float32)}
+    ranks = run_ranks([("sync_bn", "sync_bn", args)], 2, str(tmp_path),
+                      timeout=300, device="cuda")
+    for r in ranks:
+        errs = r["sync_bn"]
+        print(f"global BN against SyncBatchNorm: {errs}")
+        assert max(errs.values()) <= 1e-5, errs
