@@ -56,14 +56,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      (set to 0 just before, read just after), a finite and falling loss and
      moved parameters; two steps of the default decoder (the factored splat
      conv, no kernel); and K5's training route against the plain splat at
-     fp32 (loss and every parameter's gradient);
+     fp32 (loss and every parameter's gradient), the plain route run twice
+     under deterministic algorithms, which must repeat to the bit;
+  5b. F2: T's steps twice from one state_dict through the port's train
+     step (deterministic algorithms): losses, BN statistics and parameters
+     bit-equal; the same steps with the deterministic mode patched out
+     beside them (ms per step); the decoder's 2x upsample and joint
+     sampling (the port's forms, the library calls they replace, the
+     transposed-conv form) timed forward and backward at the eval batch's
+     shapes;
+  5c. ``python -m dir_tpu_torch.apps.convergence`` at full width (320 AdamW
+     steps on one synthetic batch of 64): its curve, finite, the last loss
+     at most 0.75 of the first;
   6. drive the Trainer on the card: configuration T's model (the flagship
      with B's flags, bf16, conditioned random weights) through
      ``Trainer.make_data/make_model/train`` on a synthetic split (128 train,
      64 test samples, written by the port's writer), device pipeline, batch
-     64: 2 epochs, each with its in-loop eval, then a second Trainer resumed
-     from ``latest`` (epoch, step, best and the augmentation generator's
-     state checked) for a third epoch, then one epoch on the host path
+     64: 1 epoch with its in-loop eval, then a second Trainer resumed from
+     ``latest`` (epoch, step, best and the augmentation generator's state
+     checked) for a second epoch, which must end bit-equal (parameters and
+     BN statistics) to a Trainer that ran the two epochs in one go (as
+     tests/test_train_e2e.py:test_trainer_resume_trajectory holds the JAX
+     package's: the cosine lr of epoch 0 is the same whatever the total),
+     then one epoch on the host path
      (uint8 wire format). The counts are set to 0 just before and read just
      after; every step must launch K5 4 times and nothing else, every eval
      batch K1 2, K2 3 and K5 4 times. K1, K2 and K5 are held against their
@@ -74,8 +89,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   6b. data parallelism (``dir_tpu_torch/parallel/``): (a) configuration T
      at global batch 64 through ``make_train_step(mesh=...)`` on a mesh of
      one NCCL rank, 2 warm-up and 3 timed steps, against the same steps
-     without a mesh; (b) two ranks sharing the one card over gloo (CUDA
-     tensors; NCCL refuses two ranks on one card), 32 a rank, 3 steps
+     without a mesh, within the spread bound and bit-equal; (b) two ranks
+     sharing the one card over gloo (CUDA tensors; NCCL refuses two ranks
+     on one card), 32 a rank, 3 steps
      against the single process on the same global batches, within a bound
      from the single process's own spread with the batch's halves swapped,
      both ranks' states bit-identical; then ``apps/train.py``'s main in two
@@ -84,14 +100,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      one rank's on the same weights at the ranks' batch of 32. Every step
      must launch K5 4 times a rank, every eval batch K1 2, K2 3 and K5 4
      times a rank; prints each backend, ms per step (two processes
-     time-slicing one card in (b): no multi-card step) and the errors;
+     time-slicing one card in (b): no multi-card step) and the errors; then
+     ``apps/eval.py --devices N --quant_static --quant_fused`` (C's int8
+     flags) in as many ranks over the same split, K3's launches counted in
+     each rank and its SUMMARY against ``--devices 1``;
   7. serve an fp32 trunk under the fused flags (the bf16 kernels' and C's)
      at cut depth: the kernels take bf16 only, so the guards route the
      blocks unfused;
   8. print the ``parallel`` line, the ``kernels`` line (launches of the
-     main path: A, B and C served, the B and C artifacts over HTTP, T, the
-     Trainer and the data-parallel runs of 6b, over their ranks), then the
-     one-line result.
+     main path: A, B and C served, the B and C artifacts over HTTP, T, F2's
+     runs, the Trainer and the data-parallel runs of 6b, over their ranks),
+     then the one-line result.
 """
 
 import argparse
@@ -99,6 +118,10 @@ import collections
 import dataclasses
 import json
 import os
+
+# cuBLAS is deterministic only with a fixed workspace; set before torch loads
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 import shutil
 import socket
 import subprocess
@@ -174,27 +197,38 @@ EXPECTED_TRAINER_EVAL = (2, 3, 0, 0, 4)
 TRAIN_BATCH = 64
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 DEFAULT_DECODER_STEPS = 2
+# F2: configuration T's timed steps, run twice from one state_dict; the
+# decoder's 2x upsample inputs (c4, stage 1's enhanced map) and sampled maps
+# (the two refine stages) at eval batch 256, bf16, with both hands' joints
+F2_STEPS = 5
+F2_UPSAMPLE_SHAPES = ((256, 8, 8, 2048), (256, 16, 16, 256))
+F2_SAMPLE_SHAPES = ((256, 16, 16, 256), (256, 32, 32, 256))
+F2_POINTS = 42
 # The loss on the repeated batch after T's steps over the first step's: at
 # most this (measured 0.843 on the card, seed 0).
 TRAIN_LOSS_RATIO = 0.92
-# K5's training route against the plain splat: fp32, TF32 off, this batch.
-# Both backwards are the plain version's; the forwards differ only at the
-# (pixel, bone) pairs near the mask's threshold and by an fp32 ulp, and
-# cuDNN's and the scatters' atomics sum in another order in every run.
-# Measured (seed 0): the loss equal, the worst gradient 3.4e-5 of the larger
-# of its max |value| and GRAD_FLOOR of the largest gradient of all, where
-# the plain route against itself gave 3.3e-5; 2 of 819,200 (pixel, bone)
-# pairs within 1e-4 px of the threshold. Bounds: the loss to
-# K5_TRAIN_LOSS_RTOL relative, every gradient to K5_TRAIN_GRAD_RTOL in that
-# measure, about ten times the spread.
+# K5's training route against the plain splat: fp32, TF32 off, this batch,
+# under deterministic algorithms. Both backwards are the plain version's;
+# the forwards differ only at the (pixel, bone) pairs near the mask's
+# threshold and by an fp32 ulp. Measured before the train path was
+# deterministic (seed 0): the loss equal, the worst gradient 3.4e-5 of the
+# larger of its max |value| and GRAD_FLOOR of the largest gradient of all,
+# where the plain route against itself gave 3.3e-5 (cuDNN's and the
+# scatters' atomics); 2 of 819,200 (pixel, bone) pairs within 1e-4 px of the
+# threshold. Under deterministic algorithms the plain route repeats to the
+# bit, and must. Bounds: the loss to K5_TRAIN_LOSS_RTOL relative, every
+# gradient to K5_TRAIN_GRAD_RTOL in that measure, about ten times that
+# spread.
 K5_TRAIN_BATCH = 16
 K5_TRAIN_LOSS_RTOL = 1e-6
 K5_TRAIN_GRAD_RTOL = 3e-4
 GRAD_FLOOR = 1e-4
 # The Trainer on the card: synthetic split sizes (2 steps an epoch, 1 eval
-# batch), epochs before the resume and after it
+# batch), epochs before the resume and after it (the resumed run is held
+# against an uninterrupted one of as many epochs; the lr schedule is cosine
+# over the run's epochs, and only epoch 0's lr is the same for every total)
 TRAINER_TRAIN, TRAINER_TEST = 128, 64
-TRAINER_EPOCHS, TRAINER_RESUMED_EPOCHS = 2, 3
+TRAINER_EPOCHS, TRAINER_RESUMED_EPOCHS = 1, 2
 # The serving artifacts: the kernel ops each exported graph names
 ARTIFACT_OPS = {
     "B": {"fused_bottleneck": 5, "fused_bottleneck_int8": 0,
@@ -229,12 +263,13 @@ DP_SEED = 10
 DP_TIMEOUT = 600
 # Each run is held against the single process's steps without a mesh in
 # three measures: the worst loss term over the steps (relative), the BN
-# running statistics (of each tensor's max) and the parameters (in lr). The
-# bf16 trunk's steps are not reproducible to the bit: the same steps run
-# again moved a loss term by 3.7 % and a statistic by 19 % of its tensor's
-# max after 5 steps (NVIDIA H100 80GB HBM3, 700 W), as cuDNN's and the
-# scatters' atomics sum in another order and Adam's normalized update
-# magnifies the difference. So the bound of each measure is DP_SPREAD_FACTOR
+# running statistics (of each tensor's max) and the parameters (in lr).
+# Before the train step ran under deterministic algorithms, the same steps
+# run again moved a loss term by 3.7 % and a statistic by 19 % of its
+# tensor's max after 5 steps (NVIDIA H100 80GB HBM3, 700 W), as cuDNN's and
+# the scatters' atomics summed in another order and Adam's normalized update
+# magnified the difference; (a) is now also held bit-equal. The bound of
+# each measure is DP_SPREAD_FACTOR
 # times the single process's own spread over the same steps, and at least
 # the floor: (a), one NCCL rank, where every collective is the identity,
 # against the spread of the steps repeated; (b), two ranks (the same
@@ -245,8 +280,16 @@ DP_SPREAD_FACTOR = 4.0
 DP_FLOORS = {"loss": 1e-6, "stats": 1e-5, "param_lr": 1e-2}
 # The two-rank train app's in-loop summary against one rank's on the same
 # weights at batch 32 (each rank's block): the same forwards, the sums
-# added in another order; relative.
+# added in another order; relative. The same bound holds the two-rank eval
+# app with K3 (two ranks of 32) against one rank (64) on the same weights,
+# calibration batch and samples (measured 1.1e-7 in two calls, NVIDIA H100
+# 80GB HBM3, 700 W).
 DP_SUMMARY_RTOL = 1e-4
+# The convergence app (apps/convergence.py at its defaults: 320 steps of
+# 64, constant lr): the last step's loss at most this share of the first's,
+# and the seconds it may take.
+CONVERGENCE_RATIO = 0.75
+CONVERGENCE_TIMEOUT = 400
 
 
 def say(msg: str) -> None:
@@ -968,6 +1011,7 @@ def k5_training_check(mods, state_dict, mano_l, mano_r) -> dict:
     parameter's gradient; counts the (pixel, bone) pairs K5 received near
     the threshold."""
     from dir_tpu_torch.config import ModelConfig
+    from dir_tpu_torch.device import deterministic
     from dir_tpu_torch.models import dir as dir_module
     from dir_tpu_torch.models.dir import DIR
     from dir_tpu_torch.models.losses import dir_losses, total_loss
@@ -991,12 +1035,14 @@ def k5_training_check(mods, state_dict, mano_l, mano_r) -> dict:
         before = bs.bone_splat.launches
         dir_module.bone_splat = recording_splat
         try:
-            out = model(batch["img"], mano_l, mano_r)
+            with deterministic():
+                out = model(batch["img"], mano_l, mano_r)
+                loss = total_loss(dir_losses(
+                    out, batch, model.cfg, mano_l.faces, mano_r.faces,
+                    fused_stages=True))
+                loss.backward()
         finally:
             dir_module.bone_splat = bs.bone_splat
-        loss = total_loss(dir_losses(out, batch, model.cfg, mano_l.faces,
-                                     mano_r.faces, fused_stages=True))
-        loss.backward()
         torch.cuda.synchronize()
         if bs.bone_splat.launches - before != (4 if pallas else 0):
             raise RuntimeError(f"K5 training check ({name}): "
@@ -1036,6 +1082,9 @@ def k5_training_check(mods, state_dict, mano_l, mano_r) -> dict:
     if not (k5[0] <= K5_TRAIN_LOSS_RTOL and k5[1][0] <= K5_TRAIN_GRAD_RTOL):
         raise RuntimeError("K5's training route disagrees with the plain "
                            "splat")
+    if spread[0] or spread[1][0]:
+        raise RuntimeError("the plain route's forward and backward did not "
+                           "repeat bit for bit under deterministic algorithms")
     return {"loss_rel_err": k5[0], "grad_rel_err": k5[1][0],
             "grad_rel_err_at": k5[1][1], "spread_loss_rel_err": spread[0],
             "spread_grad_rel_err": spread[1][0], "threshold_pairs": sum(near),
@@ -1096,6 +1145,160 @@ def train_phase(mods):
     return launches, result
 
 
+def states_equal(a: dict, b: dict) -> tuple:
+    """Two host ``state_dict``s: the tensors that differ (bitwise) and the
+    largest absolute difference over all."""
+    differ, worst = [], 0.0
+    for k, v in b.items():
+        if not torch.equal(a[k], v):
+            differ.append(k)
+            worst = max(worst, float((a[k].double() - v.double()).abs().max()))
+    return differ, worst
+
+
+def losses_diff(a: list, b: list) -> float:
+    """The largest absolute difference of any loss term over the steps."""
+    return max(abs(x[k] - v) for x, y in zip(a, b) for k, v in y.items())
+
+
+def upsample_tconv(x: torch.Tensor) -> torch.Tensor:
+    """The JAX package's other formulation of the 2x upsample
+    (``_upsample2x_tconv``): an edge pad and a depthwise transposed
+    convolution with the taps [0.25, 0.75, 0.75, 0.25], in cuDNN; a
+    yardstick for ``layers.upsample2x``, which the port does not call."""
+    n = x.permute(0, 3, 1, 2)
+    n = torch.cat([n[:, :, :1], n, n[:, :, -1:]], 2)
+    n = torch.cat([n[..., :1], n, n[..., -1:]], 3)
+    taps = torch.tensor([0.25, 0.75, 0.75, 0.25], device=x.device)
+    k = (taps[:, None] * taps[None, :]).to(x.dtype).expand(
+        x.shape[-1], 1, 4, 4)
+    out = F.conv_transpose2d(n, k, stride=2, padding=3, groups=x.shape[-1])
+    return out.permute(0, 2, 3, 1)
+
+
+def f2_op_times() -> dict:
+    """The decoder's 2x upsample and joint sampling at their eval-batch-256
+    shapes (bf16 maps), forward and forward plus backward to the maps:
+    the port's forms against the library calls they replace (and the
+    transposed-conv form of the upsample); ms by CUDA events, and each
+    form's max abs difference from the port's."""
+    from dir_tpu_torch.models.layers import upsample2x
+    from dir_tpu_torch.ops.sampling import (grid_sample_nhwc,
+                                            grid_sample_nhwc_mm)
+
+    def interpolate(x):
+        return F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
+                             mode="bilinear",
+                             align_corners=False).permute(0, 2, 3, 1)
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    cases = [("upsample", shape, {"port": upsample2x,
+                                   "F.interpolate": interpolate,
+                                   "tconv": upsample_tconv})
+             for shape in F2_UPSAMPLE_SHAPES]
+    cases += [("grid_sample", shape, {"port": grid_sample_nhwc_mm,
+                                      "F.grid_sample": grid_sample_nhwc})
+              for shape in F2_SAMPLE_SHAPES]
+    for op, shape, forms in cases:
+        x = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+        args = ()
+        if op == "grid_sample":
+            args = (torch.rand((shape[0], F2_POINTS, 2), device="cuda",
+                               generator=g) * 2.2 - 1.1,)
+        xg = x.detach().requires_grad_(True)
+        ref = forms["port"](x, *args)
+        grad = torch.randn(ref.shape, device="cuda", generator=g).to(ref.dtype)
+        row = {}
+        for name, fn in forms.items():
+            y = fn(x, *args)
+
+            def both(fn=fn):
+                return torch.autograd.grad(fn(xg, *args), xg,
+                                           grad.to(y.dtype))
+
+            row[name] = {
+                "ms": time_cuda_ms(lambda fn=fn: fn(x, *args), 20),
+                "fwd_bwd_ms": time_cuda_ms(both, 20),
+                "max_abs_diff": float((y.float() - ref.float()).abs().max())}
+        out[f"{op} {tuple(shape)}"] = row
+        say(f"F2 {op} at {tuple(shape)} (bf16): " + "; ".join(
+            f"{n} {r['ms']:.4f} ms forward, {r['fwd_bwd_ms']:.4f} ms with "
+            f"the backward, max abs diff from the port's "
+            f"{r['max_abs_diff']:.3g}" for n, r in row.items()))
+    return out
+
+
+def f2_phase(mods) -> dict:
+    """F2: configuration T's steps (full width, bf16, batch 64) twice from
+    one state_dict through the port's train step, which runs under
+    deterministic algorithms: losses, BN statistics and parameters must be
+    bit-equal. The same steps with the deterministic mode patched out time
+    what it costs; then the decoder's upsample and sampling forms."""
+    import contextlib
+
+    from dir_tpu_torch.profile_serve import train_batch
+    from dir_tpu_torch.serve import CONFIG_B, build_flagship, condition_random_
+    from dir_tpu_torch.train import steps as steps_module
+
+    model, _, mano_l, mano_r = build_flagship(
+        device="cuda", dtype="bfloat16", seed=0, **CONFIG_B)
+    condition_random_(model, mano_l, mano_r, seed=0)
+    state_dict = {k: v.detach().cpu().clone()
+                  for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    batch = {k: v.cpu() for k, v in train_batch(TRAIN_BATCH).items()}
+    batches = [batch] * (TRAIN_WARMUP + F2_STEPS)
+    runs = {}
+    mode = steps_module.deterministic
+    for name in ("first", "again", "without deterministic mode"):
+        if name.startswith("without"):
+            steps_module.deterministic = contextlib.nullcontext
+        try:
+            runs[name] = dp_steps(mods, state_dict, batches)
+        finally:
+            steps_module.deterministic = mode
+        if any(n != EXPECTED["T"] for n in runs[name]["launches"]):
+            raise RuntimeError(f"F2 ({name}): launches per step "
+                               f"{runs[name]['launches']}")
+    first, again = runs["first"], runs["again"]
+    differ, worst = states_equal(again["state"], first["state"])
+    loss_diff = losses_diff(again["losses"], first["losses"])
+    stats = [k for k in first["state"] if "running" in k]
+    stats_diff = max(float((again["state"][k] - first["state"][k]).abs().max())
+                     for k in stats)
+    result = {"steps": TRAIN_WARMUP + F2_STEPS, "warmup": TRAIN_WARMUP,
+              "batch": TRAIN_BATCH, "loss_max_abs_diff": loss_diff,
+              "bn_stats_max_abs_diff": stats_diff,
+              "state_max_abs_diff": worst, "tensors_differing": len(differ),
+              "losses": [sum(d.values()) for d in first["losses"]]}
+    for name, run in runs.items():
+        timed = sorted(run["ms"][TRAIN_WARMUP:])
+        result[name] = {"ms_per_step": run["ms"],
+                        "ms_per_step_median": timed[len(timed) // 2]}
+    say(f"F2: T at batch {TRAIN_BATCH}, {TRAIN_WARMUP} warm-up + {F2_STEPS} "
+        f"steps twice from one state_dict under deterministic algorithms: "
+        f"max difference of the loss terms {loss_diff}, of the BN "
+        f"statistics {stats_diff}, of all {len(first['state'])} tensors "
+        f"{worst} ({len(differ)} differ); ms per step "
+        f"{[round(v, 3) for v in first['ms']]} and "
+        f"{[round(v, 3) for v in again['ms']]} (medians "
+        f"{result['first']['ms_per_step_median']:.3f}, "
+        f"{result['again']['ms_per_step_median']:.3f}); without the "
+        f"deterministic mode "
+        f"{[round(v, 3) for v in runs['without deterministic mode']['ms']]}"
+        f" (median "
+        f"{result['without deterministic mode']['ms_per_step_median']:.3f})")
+    if differ or loss_diff != 0.0:
+        raise RuntimeError("F2: the same steps from one state did not "
+                           "repeat bit for bit")
+    del runs, first, again
+    torch.cuda.empty_cache()
+    result["ops"] = f2_op_times()
+    return result
+
+
 def _instrument(mods, trainer, record: dict, fed: dict):
     """Wrap the trainer's train and eval steps and its on-device
     preprocessing: each call's host time (to a synchronise), its kernel
@@ -1145,14 +1348,16 @@ def write_split(data_dir: str, mano_l, mano_r) -> None:
 
 def trainer_phase(mods):
     """The Trainer on the card: configuration T's model through
-    make_data/make_model/train with the device pipeline (2 epochs, a resume,
-    a third), then an epoch on the host path; every step's and eval batch's
+    make_data/make_model/train with the device pipeline (an epoch, a resume
+    for a second, the same two epochs in one go), then an epoch on the host
+    path; every step's and eval batch's
     launches checked; K1, K2 and K5 held against their plain versions on
     what the last in-loop eval fed them."""
     from dir_tpu_torch.config import Config, DataConfig, TrainConfig
     from dir_tpu_torch.models import dir as dir_module
     from dir_tpu_torch.serve import (CONFIG_B, build_flagship,
                                      condition_random_)
+    from dir_tpu_torch.train import checkpoint as ckpt
     from dir_tpu_torch.train.trainer import AUG_STATE_KEY, Trainer
 
     fb, _, _, bs = mods
@@ -1224,6 +1429,8 @@ def trainer_phase(mods):
                                            device_pipeline=True), False),
                 ("resumed", config("out", TRAINER_RESUMED_EPOCHS,
                                    device_pipeline=True), True),
+                ("uninterrupted", config("out_whole", TRAINER_RESUMED_EPOCHS,
+                                         device_pipeline=True), False),
                 ("host path (wire8)", config("out_host", 1, wire8=True),
                  False)):
             if resume:
@@ -1259,7 +1466,9 @@ def trainer_phase(mods):
                 "steps": record["train"][n_train:],
                 "evals": record["eval"][n_eval:],
                 "preprocess": record["preprocess"][n_pre:],
-                "epoch_stats": list(tr.epoch_stats)}
+                "epoch_stats": list(tr.epoch_stats),
+                "state": {k: v.detach().cpu().clone() for k, v in
+                          ckpt.model_state_dict(tr.model).items()}}
             if hasattr(tr, "aug_generator"):
                 runs[name]["generator_state"] = tr.aug_generator.get_state()
                 with open(os.path.join(cfg.train.output_dir, "checkpoint",
@@ -1274,8 +1483,27 @@ def trainer_phase(mods):
         dir_module.bone_splat = bs.bone_splat
     launches = kernel_counts(mods)
 
+    # the resumed Trainer against the one that ran its epochs in one go
+    differ, worst = states_equal(runs["resumed"]["state"],
+                                 runs["uninterrupted"]["state"])
+    stats = [k for k in runs["resumed"]["state"] if "running" in k]
+    say(f"trainer: resumed after epoch {TRAINER_EPOCHS} against "
+        f"uninterrupted, {TRAINER_RESUMED_EPOCHS} epochs each: "
+        f"{len(differ)} of {len(runs['resumed']['state'])} tensors differ "
+        f"({sum(k in stats for k in differ)} of {len(stats)} BN statistics),"
+        f" max abs difference {worst}; best {runs['resumed']['best']:.6f} "
+        f"and {runs['uninterrupted']['best']:.6f}")
+    if differ or runs["resumed"]["best"] != runs["uninterrupted"]["best"]:
+        raise RuntimeError("the resumed Trainer differs from the "
+                           "uninterrupted one")
+    for run in runs.values():
+        del run["state"]
+
     result = {"batch": TRAIN_BATCH, "train_samples": TRAINER_TRAIN,
-              "test_samples": TRAINER_TEST, "runs": {}}
+              "test_samples": TRAINER_TEST, "runs": {},
+              "resumed_equals_uninterrupted": {
+                  "tensors_differing": len(differ),
+                  "max_abs_diff": worst}}
     for name, run in runs.items():
         steps, evals = run["steps"], run["evals"]
         for e in steps:
@@ -1547,6 +1775,29 @@ def _dp_cli_rank(rank: int, port: int, world: int, argv: list,
         json.dump(record, f)
 
 
+def _dp_eval_rank(rank: int, port: int, world: int, argv: list,
+                  out_path: str) -> None:
+    """One rank of the data-parallel eval app, started as torchrun starts
+    one: ``apps/eval.py``'s main; writes its summary (rank 0's) and the
+    kernels' launches in this rank."""
+    sys.path.insert(0, REPO)
+    os.environ.update({"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                       "RANK": str(rank), "WORLD_SIZE": str(world),
+                       "LOCAL_RANK": str(rank),
+                       "LOCAL_WORLD_SIZE": str(world)})
+    from dir_tpu_torch.apps import eval as eval_app
+    from dir_tpu_torch.ops import bone_splat as bs
+    from dir_tpu_torch.ops import fused_bottleneck as fb
+    from dir_tpu_torch.ops import fused_bottleneck_int8 as q8
+    from dir_tpu_torch.ops import fused_stem_bottleneck as st
+
+    mods = (fb, q8, st, bs)
+    reset_counts(mods)
+    summary = eval_app.main(argv)
+    with open(out_path, "w") as f:
+        json.dump({"summary": summary, "launches": kernel_counts(mods)}, f)
+
+
 def free_port() -> int:
     """A free TCP port on the loopback interface."""
     with socket.socket() as sock:
@@ -1676,12 +1927,25 @@ def dp_phase(mods, world: int = 2, backend: str = "gloo"):
     if not within(a_errs, a_bounds):
         raise RuntimeError("dp (a): a world of 1 differs from no mesh "
                            "beyond the run-to-run spread")
+    # the train step is deterministic, so a world of 1 is the mesh-less
+    # step to the bit, and so is the mesh-less step repeated
+    a_differ, a_worst = states_equal(a["state"], ref["state"])
+    a_loss = losses_diff(a["losses"], ref["losses"])
+    again_differ, _ = states_equal(again["state"], ref["state"])
+    say(f"dp (a) exact: against the steps without a mesh, {len(a_differ)} "
+        f"of {len(ref['state'])} tensors differ (max abs difference "
+        f"{a_worst}), loss terms {a_loss}; the steps without a mesh "
+        f"repeated: {len(again_differ)} differ")
+    if a_differ or a_loss or again_differ:
+        raise RuntimeError("dp (a): a world of 1 is not bit-equal to the "
+                           "steps without a mesh")
     result["a"] = {"backend": a_backend, "world": mesh.world,
                    "ms_per_step": a["ms"],
                    "ms_per_step_median": timed[len(timed) // 2],
                    "no_mesh_ms_per_step": ref["ms"],
                    "launches_per_step": a["launches"], "errors": a_errs,
-                   "repeat_spread": repeat_n, "bounds": a_bounds}
+                   "repeat_spread": repeat_n, "bounds": a_bounds,
+                   "bit_equal": True}
     del a, again
 
     # (b) two gloo ranks on the card
@@ -1804,10 +2068,61 @@ def dp_phase(mods, world: int = 2, backend: str = "gloo"):
         "eval_batch_ms": [[e["ms"] for e in r["eval"]] for r in cli],
         "summary": summary, "one_rank_summary": on_same,
         "summary_rel_err": s_err, "seconds": time.monotonic() - t}
+    launches_eval, result["eval_k3"] = dp_eval_k3(mods, world, backend,
+                                                  data_dir, root)
     shutil.rmtree(root, ignore_errors=True)
-    launches = tuple(x + y + z for x, y, z in zip(launches_a, launches_b,
-                                                  launches_cli))
+    launches = tuple(sum(x) for x in zip(launches_a, launches_b, launches_cli,
+                                         launches_eval))
     return launches, result
+
+
+def dp_eval_k3(mods, world: int, backend: str, data_dir: str, root: str):
+    """``apps/eval.py --devices N --quant_static --quant_fused`` (C's int8
+    flags, bf16, random weights) over the Trainer phase's test split, its
+    ranks over ``backend``, against one rank: K3's launches counted in each
+    rank, and the SUMMARY against ``--devices 1`` at the same global
+    batch."""
+    from dir_tpu_torch.apps import eval as eval_app
+
+    t = time.monotonic()
+    args = ["--model", "random", "--data_path", data_dir, "--synthetic_mano",
+            "--bs", str(TRAIN_BATCH), "--dtype", "bfloat16",
+            "--quant_backbone", "--quant_decoder", "--quant_aux",
+            "--quant_static", "--quant_fused", "--quant_fused_l2_bands", "4",
+            "--resume_every", "0"]
+    outs = [os.path.join(root, f"eval{r}.json") for r in range(world)]
+    _spawn_ranks(_dp_eval_rank, world, lambda r: (
+        args + ["--out", os.path.join(root, "eval_ranks"), "--devices",
+                str(world), "--backend", backend], outs[r]))
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    summary = ranks[0]["summary"]
+    reset_counts(mods)
+    one = eval_app.main(args + ["--out", os.path.join(root, "eval_one")])
+    one_launches = kernel_counts(mods)
+    err = max(abs(summary[k] - v) / abs(v) for k, v in one.items())
+    by_rank = [tuple(r["launches"]) for r in ranks]
+    k3 = KERNELS.index("K3")
+    say(f"dp eval with K3: {world} {backend} ranks, --quant_static "
+        f"--quant_fused at global batch {TRAIN_BATCH} over the "
+        f"{TRAINER_TEST} test samples: launches of {KERNELS} by rank "
+        f"{by_rank} (one rank {one_launches}); joint_mean_all_mm "
+        f"{summary['joint_mean_all_mm']:.4f}, one rank "
+        f"{one['joint_mean_all_mm']:.4f}, worst summary term {err:.3g} "
+        f"relative (bound {DP_SUMMARY_RTOL}); "
+        f"{time.monotonic() - t:.1f} s")
+    if any(n != one_launches or not n[k3]
+           or sum(n) != n[k3] for n in by_rank):
+        raise RuntimeError("dp eval with K3: a rank's launches")
+    if err > DP_SUMMARY_RTOL:
+        raise RuntimeError("dp eval with K3: the summary differs from one "
+                           "rank's")
+    return (tuple(sum(r[i] for r in by_rank) for i in range(len(KERNELS))),
+            {"launches_by_rank": by_rank, "one_rank_launches": one_launches,
+             "summary": summary, "one_rank_summary": one,
+             "summary_rel_err": err, "seconds": time.monotonic() - t})
 
 
 def cuda_ops(fn) -> int:
@@ -2208,6 +2523,36 @@ def train_cli_phase() -> dict:
     return {"seconds": seconds, "best_mm": best, "launches": launches}
 
 
+def convergence_phase() -> dict:
+    """``python -m dir_tpu_torch.apps.convergence`` at its defaults (full
+    width, 320 steps at batch 64, bf16) in its own process on the card:
+    its curve, finite, and the last loss at most CONVERGENCE_RATIO of the
+    first."""
+    t = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dir_tpu_torch.apps.convergence"], cwd=REPO,
+        capture_output=True, text=True, timeout=CONVERGENCE_TIMEOUT)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        say(f"convergence: {line}")
+    if proc.returncode:
+        raise RuntimeError(f"convergence exited with {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+    summary = json.loads(lines[-1])
+    curve = [float(line.split("loss=")[1].split()[0]) for line in lines
+             if line.startswith("step=")]
+    ratio = summary["final_loss"] / summary["first_loss"]
+    say(f"convergence: {summary['steps']} steps, loss "
+        f"{summary['first_loss']:.6f} -> {summary['final_loss']:.6f} "
+        f"(ratio {ratio:.4f}, bound {CONVERGENCE_RATIO}), ms per step "
+        f"{summary['ms_per_step_median']:.3f}; {time.monotonic() - t:.1f} s")
+    if not (np.isfinite(curve).all() and np.isfinite(ratio)
+            and ratio <= CONVERGENCE_RATIO):
+        raise RuntimeError("convergence: a loss is not finite or the loss "
+                           "did not fall enough")
+    return dict(summary, curve=curve, seconds=time.monotonic() - t)
+
+
 def f1_phase(mods):
     """An fp32 trunk under the fused flags serves on the card: the guards
     send the blocks the kernels would take (bf16 only) to the unfused fp32
@@ -2344,6 +2689,11 @@ def main(argv=None) -> int:
     del live
     torch.cuda.empty_cache()
     launches["T"], train = train_phase(mods)
+    reset_counts(mods)
+    train["f2"] = f2_phase(mods)
+    launches["F2"] = kernel_counts(mods)
+    torch.cuda.empty_cache()
+    train["convergence"] = convergence_phase()
     launches["trainer"], fed_err, train["trainer"] = trainer_phase(mods)
     artifact["train_cli"] = train_cli_phase()
     launches["dp"], parallel = dp_phase(mods)
@@ -2359,9 +2709,12 @@ def main(argv=None) -> int:
     # launches are the main path's, over A's, B's and C's requests, T's
     # train steps and the Trainer's runs. K4 is on no path: its entry holds
     # its standalone check and 0 launches.
-    runs = list(CONFIGS) + ["artifact B", "artifact C", "T", "trainer", "dp"]
+    runs = list(CONFIGS) + ["artifact B", "artifact C", "T", "F2", "trainer",
+                            "dp"]
     expected = dict(EXPECTED, trainer=EXPECTED_TRAINER_EVAL,
-                    dp=EXPECTED_TRAINER_EVAL,
+                    dp=tuple(max(a, b) for a, b in zip(
+                        EXPECTED_TRAINER_EVAL, EXPECTED["C"])),
+                    F2=EXPECTED["T"],
                     **{f"artifact {n}": EXPECTED[n] for n in "BC"})
 
     def entry(key, name, source, replaces, at_shape, **more):

@@ -6,7 +6,7 @@ Usage:
         --data_path ./data/interhand2.6m --mano_path ./assets/mano \
         [--bs 64] [--root_joint 0] [--no-scale] [--out <dir>] \
         [--dtype bfloat16 --fused_bottleneck] [--device cpu] \
-        [--devices N] [--unroll K]
+        [--devices N [--backend gloo]] [--unroll K]
 
 ``--model`` takes a port checkpoint (``<ckpt_dir>/<name>``, the
 ``<name>.pt`` that the port's Trainer writes, or a checkpoint directory,
@@ -88,6 +88,10 @@ def parse_args(argv=None):
     ap.add_argument("--devices", type=int, default=1,
                     help="data-parallel ranks, one process each; each batch "
                          "is split over them (per-sample outputs unchanged)")
+    ap.add_argument("--backend", type=str, default=None,
+                    choices=["nccl", "gloo"],
+                    help="the ranks' collectives (default: nccl on cards, "
+                         "gloo on the CPU; gloo lets ranks share a card)")
     opt = ap.parse_args(argv)
     if opt.quant_static and not (opt.quant_backbone or opt.quant_decoder
                                  or opt.quant_aux):
@@ -114,7 +118,7 @@ def main(argv=None) -> dict:
 
     mesh = None
     if pmesh.launched():
-        pmesh.init_distributed(device=opt.device)
+        pmesh.init_distributed(backend=opt.backend, device=opt.device)
         mesh = pmesh.make_mesh(opt.devices, device=opt.device)
     elif opt.devices > 1:
         return launch.run_ranks("dir_tpu_torch.apps.eval",

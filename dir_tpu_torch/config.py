@@ -170,6 +170,10 @@ class Config:
     mano_assets: str = "./assets/mano"
 
 
+def default_config() -> Config:
+    return Config()
+
+
 _SECTIONS = {"model": ModelConfig, "data": DataConfig, "train": TrainConfig}
 
 

@@ -70,3 +70,26 @@ def no_tf32():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms on, restored afterwards: PyTorch's
+    deterministic mode (an op with no deterministic CUDA form raises),
+    cuDNN's deterministic algorithms and no benchmark-picked ones. The
+    train step runs under it, so that a step repeats bit for bit on the
+    card, as the JAX package's does. cuBLAS needs
+    ``CUBLAS_WORKSPACE_CONFIG``, which importing the package sets."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved[2:]

@@ -181,8 +181,8 @@ def load_mano_pair(assets_dir: str, tips_style: str = "network"
                 return p
         raise FileNotFoundError(
             f"No MANO_{side.upper()}.npz/.pkl under {assets_dir}; run "
-            "tools/convert_mano.py on the official files, or use "
-            "synthetic_mano().")
+            "python -m dir_tpu_torch.apps.convert_mano on the official "
+            "files, or use synthetic_mano().")
 
     if tips_style == "data":
         tips_l = tips_r = TIPS_DATA

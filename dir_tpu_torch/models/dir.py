@@ -29,7 +29,7 @@ from dir_tpu_torch.models.transformer import STE
 from dir_tpu_torch.ops.bone_splat import bone_splat, bone_splat_plain
 from dir_tpu_torch.ops.projection import ortho_project
 from dir_tpu_torch.ops.quant import ActAmax, module_quant_conv
-from dir_tpu_torch.ops.sampling import grid_sample_nhwc
+from dir_tpu_torch.ops.sampling import grid_sample_nhwc_mm
 from dir_tpu_torch.ops.splat_conv import fused_splat_conv
 
 
@@ -202,8 +202,11 @@ class RefineStage(nn.Module):
         para_r = prev["pd_mano_para_right"].detach()
         offset = prev["pd_offset"].detach()
 
-        # joint-space interaction; one sampling pass for both hands
-        sampled = grid_sample_nhwc(_nhwc(img_feat), torch.cat([uv_l, uv_r], 1))
+        # joint-space interaction; one sampling pass for both hands, by the
+        # selection-matrix form (fp32 out; the MLPs cast), as dir_tpu samples
+        # in train and eval alike
+        sampled = grid_sample_nhwc_mm(_nhwc(img_feat),
+                                      torch.cat([uv_l, uv_r], 1))
         jif_l = self.img2joint_left(sampled[:, :cfg.joint_num])
         jif_r = self.img2joint_right(sampled[:, cfg.joint_num:])
         feat_l = self.gcn_left(jif_l + self.pos_emb_left(xyz_l / scale))

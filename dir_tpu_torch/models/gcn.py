@@ -1,5 +1,7 @@
 """Semantic graph convolutions over the 21-joint hand skeleton
-(counterpart of ``ResSimplePGCN`` in ``dir_tpu/models/gcn.py``)."""
+(counterpart of ``dir_tpu/models/gcn.py``): DIR's ``ResSimplePGCN``, and
+``SimplePGCN`` and the hierarchically pooling ``SimplePoolGCN``, which DIR
+never builds."""
 
 from __future__ import annotations
 
@@ -7,7 +9,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from dir_tpu_torch.models.layers import BatchNorm1d, bn_tokens
+from dir_tpu_torch.models.layers import BatchNorm1d, bn_tokens, linear
 
 # 21-joint hand skeleton edges.
 HAND_EDGES = (
@@ -19,13 +21,18 @@ HAND_EDGES = (
 )
 
 
-def hand_adjacency(num_joints: int = 21) -> np.ndarray:
-    """Symmetric binary one-hop adjacency of the skeleton, no self loops."""
-    adj = np.zeros((num_joints, num_joints), np.float32)
-    for i, j in HAND_EDGES:
+def adjacency_from_edges(num_nodes: int, edges) -> np.ndarray:
+    """Symmetric binary one-hop adjacency of ``edges``, no self loops."""
+    adj = np.zeros((num_nodes, num_nodes), np.float32)
+    for i, j in edges:
         adj[i, j] = 1.0
         adj[j, i] = 1.0
     return adj
+
+
+def hand_adjacency(num_joints: int = 21) -> np.ndarray:
+    """Adjacency of the 21-joint skeleton."""
+    return adjacency_from_edges(num_joints, HAND_EDGES)
 
 
 class PGraphConv(nn.Module):
@@ -97,3 +104,85 @@ class ResSimplePGCN(nn.Module):
         for layer in self.gconv_layers:
             x = layer(x)
         return x
+
+
+def get_hierarchy_sketch():
+    """Edge lists of the hierarchical coarsening: 21 -> 11 -> 6 -> 1 nodes."""
+    return (
+        HAND_EDGES,
+        ((0, 1), (1, 2), (0, 3), (3, 4), (0, 5), (5, 6), (0, 7), (7, 8),
+         (0, 9), (9, 10)),
+        ((0, 1), (0, 2), (0, 3), (0, 4), (0, 5)),
+        ((0, 0),),
+    )
+
+
+def get_hierarchy_mapping():
+    """The node groups each level pools into one node of the next."""
+    return (
+        ((0,), (1, 2), (3, 4), (5, 6), (7, 8), (9, 10), (11, 12), (13, 14),
+         (15, 16), (17, 18), (19, 20)),
+        ((0,), (1, 2), (3, 4), (5, 6), (7, 8), (9, 10)),
+        ((0, 1, 2, 3, 4, 5),),
+    )
+
+
+class SimplePGCN(nn.Module):
+    """in -> hidden x ``num_layers`` -> out stack of GraphConvBlocks
+    (``dir_tpu/models/gcn.py:SimplePGCN``; DIR never builds it)."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 num_layers: int = 4, adjacency: np.ndarray | None = None,
+                 dtype=torch.float32):
+        super().__init__()
+        adj = hand_adjacency() if adjacency is None else adjacency
+        self.gconv_input = GraphConvBlock(in_dim, hidden_dim, adj, dtype)
+        self.gconv_layers = nn.ModuleList(
+            GraphConvBlock(hidden_dim, hidden_dim, adj, dtype)
+            for _ in range(num_layers))
+        self.gconv_output = GraphConvBlock(hidden_dim, out_dim, adj, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.gconv_input(x)
+        for layer in self.gconv_layers:
+            x = layer(x)
+        return self.gconv_output(x)
+
+
+def pool_matrix(node_map) -> np.ndarray:
+    """Row-normalized (M, N) one-hot pooling matrix: ``mat @ x`` is the
+    mean of each group of ``node_map``."""
+    n = max(max(g) for g in node_map) + 1
+    mat = np.zeros((len(node_map), n), np.float32)
+    for i, group in enumerate(node_map):
+        mat[i, list(group)] = 1.0 / len(group)
+    return mat
+
+
+class SimplePoolGCN(nn.Module):
+    """Hierarchically pooling GCN encoder: a graph conv at 21 nodes, a mean
+    pool to 11, a conv, a pool to 6, a conv, a pool to 1 and a linear head
+    (``dir_tpu/models/gcn.py:SimplePoolGCN``; DIR never builds it).
+    (B, 21, in_dim) -> (B, out_dim)."""
+
+    def __init__(self, in_dim: int, hid_dims=(64, 64, 64), out_dim: int = 64,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        sketches, maps = get_hierarchy_sketch(), get_hierarchy_mapping()
+        dims = (in_dim,) + tuple(hid_dims)
+        self.gconv_layers = nn.ModuleList(
+            GraphConvBlock(dims[i], dims[i + 1],
+                           adjacency_from_edges(n, sketches[i]), dtype)
+            for i, n in enumerate((21, 11, 6)[:len(hid_dims)]))
+        for i in range(len(hid_dims)):
+            self.register_buffer(f"pool{i}",
+                                 torch.from_numpy(pool_matrix(maps[i])),
+                                 persistent=False)
+        self.fc = nn.Linear(dims[-1], out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, layer in enumerate(self.gconv_layers):
+            pool = getattr(self, f"pool{i}").to(self.dtype)
+            x = torch.einsum("mn,bnc->bmc", pool, layer(x))
+        return linear(x, self.fc, self.dtype)[:, 0]

@@ -66,6 +66,37 @@ def bn_tokens(x: torch.Tensor, bn: BatchNorm1d) -> torch.Tensor:
     return bn(x.transpose(1, 2)).transpose(1, 2)
 
 
+def _same_pads(size: int, kernel: int, stride: int) -> tuple:
+    """flax's "SAME" padding of one axis: (low, high), the extra pixel on
+    the high side."""
+    total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class ConvBNRelu(nn.Module):
+    """Conv ("SAME" padding, as flax pads) -> optional BN -> optional ReLU
+    (``dir_tpu/models/layers.py:ConvBNRelu``; DIR never builds it)."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 3,
+                 stride: int = 1, use_bn: bool = True, use_relu: bool = True,
+                 use_bias: bool = True, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.use_relu = use_relu
+        self.conv = nn.Conv2d(in_ch, features, kernel, stride,
+                              bias=use_bias)
+        self.bn = BatchNorm2d(features) if use_bn else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, s = self.conv.kernel_size[0], self.conv.stride[0]
+        ph = _same_pads(x.shape[2], k, s)
+        pw = _same_pads(x.shape[3], k, s)
+        x = conv2d(F.pad(x, (*pw, *ph)), self.conv, self.dtype)
+        if self.bn is not None:
+            x = self.bn(x)
+        return torch.relu(x) if self.use_relu else x
+
+
 class ConvHolder(nn.Module):
     """Holds one conv as ``.conv`` (the reference's ``conv1.conv`` keys)."""
 
@@ -148,6 +179,27 @@ class Residual(nn.Module):
         return (out + skip).permute(0, 3, 1, 2)
 
 
+class Hourglass(nn.Module):
+    """Recursive hourglass of :class:`Residual` blocks with a 2x2 max pool
+    and a nearest 2x upsample (``dir_tpu/models/layers.py:Hourglass``; DIR
+    never builds it)."""
+
+    def __init__(self, depth: int, features: int, increase: int = 0,
+                 dtype=torch.float32):
+        super().__init__()
+        nf = features + increase
+        self.up1 = Residual(features, features, dtype)
+        self.low1 = Residual(features, nf, dtype)
+        self.low2 = (Hourglass(depth - 1, nf, dtype=dtype) if depth > 1
+                     else Residual(nf, nf, dtype))
+        self.low3 = Residual(nf, features, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        low = self.low3(self.low2(self.low1(F.max_pool2d(x, 2, 2))))
+        return self.up1(x) + F.interpolate(low, scale_factor=2,
+                                           mode="nearest")
+
+
 class MLP1d(nn.Sequential):
     """Conv1d(k=1) -> BN1d -> ReLU -> Conv1d(k=1) over (B, N, C) tokens;
     the Sequential layout gives the reference keys ``0``, ``1`` and ``3``."""
@@ -201,10 +253,26 @@ class ConvHead(nn.Sequential):
         return conv2d(y.permute(0, 3, 1, 2), self[3], dt)
 
 
+def _upsample_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Half-pixel bilinear 2x along ``axis``: out[2i] = 0.75 in[i] +
+    0.25 in[i-1], out[2i+1] = 0.75 in[i] + 0.25 in[i+1], edges clamped."""
+    n = x.shape[axis]
+    edged = torch.cat([x.narrow(axis, 0, 1), x, x.narrow(axis, n - 1, 1)],
+                      axis)
+    mid = 0.75 * x
+    pair = torch.stack([torch.add(mid, edged.narrow(axis, 0, n), alpha=0.25),
+                        torch.add(mid, edged.narrow(axis, 2, n), alpha=0.25)],
+                       axis + 1)
+    shape = list(x.shape)
+    shape[axis] = 2 * n
+    return pair.reshape(shape)
+
+
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """Bilinear 2x upsampling of (B, H, W, C) maps with torch
-    ``align_corners=False`` semantics; the JAX package's transposed-conv
-    form is the same algebra."""
-    up = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
-                       mode="bilinear", align_corners=False)
-    return up.permute(0, 2, 3, 1)
+    ``align_corners=False`` semantics, in the JAX package's algebra (its
+    default transposed-conv form, ``_upsample2x_tconv``): separable per
+    axis, summed in at least fp32 and rounded once to ``x``'s dtype. Its
+    backward is slices and weighted adds, with no atomics."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return _upsample_axis(_upsample_axis(x.to(acc), 1), 2).to(x.dtype)

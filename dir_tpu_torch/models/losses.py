@@ -106,8 +106,13 @@ def _lovasz_grad(gt_sorted: torch.Tensor) -> torch.Tensor:
     """Gradient of the Lovász extension with respect to the sorted errors,
     per leading index; ``gt_sorted`` is (..., N) sorted on its last axis."""
     gts = gt_sorted.sum(-1, keepdim=True)
-    intersection = gts - gt_sorted.cumsum(-1)
-    union = gts + (1.0 - gt_sorted).cumsum(-1)
+    # the labels are 0 or 1, so their running counts are integers: counted
+    # in int64, exact as the float cumsum is and deterministic on the card,
+    # where a float cumsum has no deterministic form
+    fg_count = gt_sorted.long().cumsum(-1).to(gt_sorted.dtype)
+    bg_count = (1 - gt_sorted.long()).cumsum(-1).to(gt_sorted.dtype)
+    intersection = gts - fg_count
+    union = gts + bg_count
     jaccard = 1.0 - intersection / union
     return torch.cat([jaccard[..., :1], jaccard[..., 1:] - jaccard[..., :-1]],
                      dim=-1)

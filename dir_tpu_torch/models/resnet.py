@@ -1,5 +1,6 @@
-"""ResNet-50 backbone returning the 4-level feature pyramid
-(counterpart of ``dir_tpu/models/resnet.py``, conv7 and s2d stems).
+"""ResNet backbones returning the 4-level feature pyramid (counterpart of
+``dir_tpu/models/resnet.py``, conv7 and s2d stems): DIR's ResNet-50, and
+the ResNet-18/34 of :class:`BasicBlock` that DIR never builds.
 
 torchvision v1.5 bottlenecks: the stride sits on the 3x3 conv, padding
 is symmetric, and a 1x1 projection exists where the residual shapes
@@ -261,6 +262,36 @@ def stem_weights_to_s2d(w7: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(w4)
 
 
+class BasicBlock(nn.Module):
+    """Two 3x3 convs with a residual (torchvision's ``BasicBlock``), the
+    stride on the first conv; the blocks of ``resnet18``/``resnet34``.
+    DIR never builds it. Training and eval run the plain computation: the
+    fused and int8 paths belong to :class:`Bottleneck` only."""
+
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = BatchNorm2d(planes)
+        self.downsample = (nn.Sequential(
+            nn.Conv2d(inplanes, planes, 1, stride, bias=False),
+            BatchNorm2d(planes)) if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        out = torch.relu(self.bn1(conv2d(x, self.conv1, dt)))
+        out = self.bn2(conv2d(out, self.conv2, dt))
+        identity = x
+        if self.downsample is not None:
+            identity = self.downsample[1](conv2d(x, self.downsample[0], dt))
+        return torch.relu(out + identity)
+
+
 class ResNetPyramid(nn.Module):
     """ResNet emitting [c1, c2, c3, c4] at strides 4/8/16/32.
 
@@ -269,6 +300,10 @@ class ResNetPyramid(nn.Module):
     12-channel map, padded (2, 1) on both axes (``conv1.weight`` is then
     (64, 12, 4, 4); :func:`stem_weights_to_s2d` converts conv7 weights
     exactly).
+
+    block: "bottleneck" (:class:`Bottleneck`, expansion 4) or "basic"
+    (:class:`BasicBlock`, expansion 1, which takes none of the fused or
+    int8 flags).
     """
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
@@ -276,10 +311,18 @@ class ResNetPyramid(nn.Module):
                  stem: str = "conv7", fused_l2_bands: int = 0,
                  quant_eval: bool = False, quant_static: bool = False,
                  quant_stem: bool = False, quant_fused: bool = False,
-                 quant_fused_l2_bands: int = 0):
+                 quant_fused_l2_bands: int = 0, block: str = "bottleneck"):
         super().__init__()
         if stem not in ("conv7", "s2d"):
             raise ValueError(f"unknown stem {stem!r}")
+        if block not in ("bottleneck", "basic"):
+            raise ValueError(f"unknown block {block!r}")
+        blk = Bottleneck if block == "bottleneck" else BasicBlock
+        flags = dict(fused_eval=fused_eval, fused_l2_bands=fused_l2_bands,
+                     quant_eval=quant_eval, quant_static=quant_static,
+                     quant_fused=quant_fused,
+                     quant_fused_l2_bands=quant_fused_l2_bands
+                     ) if block == "bottleneck" else {}
         self.dtype = dtype
         self.stem = stem
         # Int8 stem conv with bn1 folded in (cfg.quant_aux_eval).
@@ -296,16 +339,10 @@ class ResNetPyramid(nn.Module):
             seq = []
             for b in range(blocks):
                 down = b == 0 and (stride != 1
-                                   or inplanes != planes * Bottleneck.expansion)
-                seq.append(Bottleneck(inplanes, planes,
-                                      stride if b == 0 else 1, down,
-                                      dtype=dtype, fused_eval=fused_eval,
-                                      fused_l2_bands=fused_l2_bands,
-                                      quant_eval=quant_eval,
-                                      quant_static=quant_static,
-                                      quant_fused=quant_fused,
-                                      quant_fused_l2_bands=quant_fused_l2_bands))
-                inplanes = planes * Bottleneck.expansion
+                                   or inplanes != planes * blk.expansion)
+                seq.append(blk(inplanes, planes, stride if b == 0 else 1,
+                               down, dtype=dtype, **flags))
+                inplanes = planes * blk.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*seq))
 
     def _quant_stem(self, x: torch.Tensor) -> torch.Tensor:
@@ -338,3 +375,17 @@ class ResNetPyramid(nn.Module):
             x = getattr(self, name)(x)
             feats.append(x)
         return feats
+
+
+def resnet50(**kw) -> ResNetPyramid:
+    return ResNetPyramid(layers=(3, 4, 6, 3), **kw)
+
+
+def resnet18(**kw) -> ResNetPyramid:
+    """The reference's vendored ``resnet18`` (DIR never builds it)."""
+    return ResNetPyramid(layers=(2, 2, 2, 2), block="basic", **kw)
+
+
+def resnet34(**kw) -> ResNetPyramid:
+    """The reference's vendored ``resnet34`` (DIR never builds it)."""
+    return ResNetPyramid(layers=(3, 4, 6, 3), block="basic", **kw)

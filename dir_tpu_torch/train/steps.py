@@ -5,8 +5,11 @@ One optimizer step: decode the uint8 wire format, a train-mode forward
 the stages fused, the backward, and the AdamW update at the epoch-quantized
 lr. The trunk runs in the model's dtype on fp32 master parameters; MANO,
 the heads and the losses run in fp32, so the step turns TF32 off while it
-runs. On the materialized splat branch with ``use_pallas_splat`` the
-forward launches kernel K5 (four times a step) and its backward runs K5's
+runs. It also runs under deterministic algorithms
+(``device.deterministic``), so that the same step on the same state
+repeats bit for bit on the card, as the JAX package's does. On the
+materialized splat branch with ``use_pallas_splat`` the forward launches
+kernel K5 (four times a step) and its backward runs K5's
 plain version, as the JAX package's ``custom_vjp`` does; the fused
 bottleneck kernels are inference-only and never run here.
 
@@ -31,7 +34,8 @@ from typing import Callable
 import torch
 
 from dir_tpu_torch.config import ModelConfig
-from dir_tpu_torch.device import float_constant, no_tf32, resolve_device
+from dir_tpu_torch.device import (deterministic, float_constant, no_tf32,
+                                  resolve_device)
 from dir_tpu_torch.mano.assets import ManoModel
 from dir_tpu_torch.models.losses import dir_losses, total_loss
 from dir_tpu_torch.parallel.mesh import Mesh, average_gradients, replicate
@@ -159,7 +163,7 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     def step(state: TrainState, batch: dict):
         batch = _to_device(batch, dev)
         model.train()
-        with no_tf32():
+        with no_tf32(), deterministic():
             if grad_accum > 1:
                 return accum_step(state, batch)
             if unroll == 1:

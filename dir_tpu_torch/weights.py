@@ -84,9 +84,11 @@ def _mlp1d(tpre, fpre):
             + _conv1d_dense(f"{tpre}.3", fpre + ("fc2",)))
 
 
-def _bottleneck(tpre, fpre, has_down):
+def _block(tpre, fpre, has_down, convs=3):
+    """A Bottleneck (three convs) or a BasicBlock (two), torchvision's
+    names, with the projection as ``downsample``."""
     out = []
-    for i in (1, 2, 3):
+    for i in range(1, convs + 1):
         out += _conv2d(f"{tpre}.conv{i}", fpre + (f"conv{i}",), bias=False)
         out += _bn(f"{tpre}.bn{i}", fpre + (f"bn{i}",))
     if has_down:
@@ -96,32 +98,73 @@ def _bottleneck(tpre, fpre, has_down):
     return out
 
 
-def _resnet(layers):
-    out = _conv2d("backbone.conv1", ("backbone", "conv1"), bias=False)
-    out += _bn("backbone.bn1", ("backbone", "bn1"))
+def resnet_mapping(layers, block: str = "bottleneck", tpre: str = "",
+                   fpre: Tuple[str, ...] = ()) -> List[Entry]:
+    """The entries of a ``ResNetPyramid`` (``models/resnet.py``) whose keys
+    start with ``tpre`` and whose JAX paths with ``fpre``. A BasicBlock's
+    layer1_0 has no projection (64 channels in and out, stride 1)."""
+    convs = 3 if block == "bottleneck" else 2
+    out = _conv2d(f"{tpre}conv1", fpre + ("conv1",), bias=False)
+    out += _bn(f"{tpre}bn1", fpre + ("bn1",))
     for s, blocks in enumerate(layers):
         for b in range(blocks):
-            out += _bottleneck(f"backbone.layer{s + 1}.{b}",
-                               ("backbone", f"layer{s + 1}_{b}"),
-                               has_down=b == 0)
+            out += _block(f"{tpre}layer{s + 1}.{b}",
+                          fpre + (f"layer{s + 1}_{b}",),
+                          b == 0 and (s > 0 or convs == 3), convs)
     return out
+
+
+def conv_bn_relu_mapping(use_bn: bool = True,
+                         use_bias: bool = True) -> List[Entry]:
+    """The entries of a ``layers.ConvBNRelu``."""
+    out = _conv2d("conv", ("conv",), bias=use_bias)
+    return out + (_bn("bn", ("bn",)) if use_bn else [])
+
+
+def hourglass_mapping(depth: int, tpre: str = "",
+                      fpre: Tuple[str, ...] = ()) -> List[Entry]:
+    """The entries of a ``layers.Hourglass`` of ``depth``; a Residual's
+    skip conv, present only where its widths differ, is skipped where the
+    JAX tree has none."""
+    out = []
+    for name in ("up1", "low1", "low3"):
+        out += _residual(f"{tpre}{name}", fpre + (name,))
+    if depth > 1:
+        return out + hourglass_mapping(depth - 1, f"{tpre}low2.",
+                                       fpre + ("low2",))
+    return out + _residual(f"{tpre}low2", fpre + ("low2",))
+
+
+def _gcn_block(g, f):
+    return [
+        Entry(f"{g}.gconv.W", f + ("gconv", "w"), "raw", "params"),
+        Entry(f"{g}.gconv.e_0", f + ("gconv", "e0"), "squeeze0", "params"),
+        Entry(f"{g}.gconv.e_1", f + ("gconv", "e1"), "squeeze0", "params"),
+        Entry(f"{g}.gconv.bias", f + ("gconv", "bias"), "raw", "params"),
+    ] + _bn(f"{g}.bn", f + ("bn",))
 
 
 def _gcn(tpre, fpre, num_layers=4):
     out = []
     for i in range(num_layers):
-        g = f"{tpre}.gconv_layers.{i}"
-        f = fpre + (f"layer{i}",)
-        out += [
-            Entry(f"{g}.gconv.W", f + ("gconv", "w"), "raw", "params"),
-            Entry(f"{g}.gconv.e_0", f + ("gconv", "e0"), "squeeze0",
-                  "params"),
-            Entry(f"{g}.gconv.e_1", f + ("gconv", "e1"), "squeeze0",
-                  "params"),
-            Entry(f"{g}.gconv.bias", f + ("gconv", "bias"), "raw", "params"),
-        ]
-        out += _bn(f"{g}.bn", f + ("bn",))
+        out += _gcn_block(f"{tpre}.gconv_layers.{i}", fpre + (f"layer{i}",))
     return out
+
+
+def simple_pgcn_mapping(num_layers: int = 4) -> List[Entry]:
+    """The entries of a ``gcn.SimplePGCN``."""
+    out = _gcn_block("gconv_input", ("gconv_in",))
+    for i in range(num_layers):
+        out += _gcn_block(f"gconv_layers.{i}", (f"layer{i}",))
+    return out + _gcn_block("gconv_output", ("gconv_out",))
+
+
+def simple_pool_gcn_mapping(levels: int = 3) -> List[Entry]:
+    """The entries of a ``gcn.SimplePoolGCN`` of ``levels`` graph convs."""
+    out = []
+    for i in range(levels):
+        out += _gcn_block(f"gconv_layers.{i}", (f"gconv{i}",))
+    return out + _dense("fc", ("fc",))
 
 
 def _ste(tpre, fpre, depth=4):
@@ -168,7 +211,8 @@ def _refine_stage(tpre, fpre):
 
 def dir_mapping(backbone_layers=(3, 4, 6, 3)) -> List[Entry]:
     """Every (torch key, JAX path, transform) pair of the DIR model."""
-    out = _resnet(backbone_layers)
+    out = resnet_mapping(backbone_layers, tpre="backbone.",
+                         fpre=("backbone",))
     for side in ("left", "right"):
         out += _head(f"init_regressor.attention_{side}",
                      ("init_regressor", f"attention_{side}"))
@@ -212,8 +256,17 @@ def jax_to_state_dict(params: dict, batch_stats: dict,
                       backbone_layers=(3, 4, 6, 3)) -> Dict[str, torch.Tensor]:
     """JAX ``params``/``batch_stats`` trees -> the port's ``state_dict``
     (CPU tensors, same dtypes and values)."""
+    return entries_to_state_dict(dir_mapping(backbone_layers), params,
+                                 batch_stats)
+
+
+def entries_to_state_dict(entries: List[Entry], params: dict,
+                          batch_stats: dict) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` that ``entries`` (a mapping table, such as
+    :func:`dir_mapping` or :func:`resnet_mapping`) make of JAX
+    ``params``/``batch_stats`` trees; leaves the trees lack are skipped."""
     sd = {}
-    for e in dir_mapping(backbone_layers):
+    for e in entries:
         tree = params if e.collection == "params" else batch_stats
         leaf = _get(tree, e.path)
         if leaf is None:

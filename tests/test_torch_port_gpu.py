@@ -3,7 +3,9 @@ bottleneck, weights resident and streamed), K3 (the fused int8 bottleneck), K4
 (stem + layer1_0) and K5 (the bone splat) against their plain versions, the
 unfused int8 conv's integers against the CPU's, the bf16 and int8
 forwards with the kernels against the fp32 forward, K5's gradient, a bf16
-train step, an fp32 trunk under the fused flags (served unfused: the
+train step, the train step and the decoder's sampler and upsample repeated
+to the bit under deterministic algorithms, the sampler against
+``F.grid_sample``, an fp32 trunk under the fused flags (served unfused: the
 kernels take bf16 only), and the kernels as ``torch.ops.dir_tpu.*`` ops:
 equal to their launches, ``opcheck`` on CUDA tensors, and configuration B
 exported on the card launching them from its program.
@@ -694,6 +696,104 @@ def test_bf16_train_step_on_card_launches_k5():
              if not torch.equal(p, init[k])]
     assert len(moved) > 0.9 * len(init)
     assert all(torch.isfinite(p).all() for p in model.parameters())
+
+
+def _train_step_twice(dev, flags: dict):
+    """One bf16 train step of a cut-depth flagship with ``flags``, run twice
+    from one state_dict: the loss dicts and the states after the step."""
+    from dir_tpu_torch.config import ModelConfig, TrainConfig
+    from dir_tpu_torch.models.dir import DIR
+    from dir_tpu_torch.profile_serve import train_batch
+    from dir_tpu_torch.serve import (condition_random_, flagship_mano,
+                                     random_init_)
+    from dir_tpu_torch.train.state import create_train_state, make_optimizer
+    from dir_tpu_torch.train.steps import make_train_step
+
+    ml, mr = (m.to(dev) for m in flagship_mano())
+    cfg = ModelConfig(backbone_layers=(1, 1, 1, 1), dtype="bfloat16", **flags)
+    init = random_init_(DIR(cfg), seed=0).to(dev)
+    condition_random_(init, ml, mr, seed=0)
+    sd = {k: v.clone() for k, v in init.state_dict().items()}
+    batch = train_batch(8, device=dev)
+    runs = []
+    for _ in range(2):
+        model = DIR(cfg).to(dev)
+        model.load_state_dict(sd, strict=True)
+        opt = make_optimizer(model, TrainConfig(), 1000)
+        step = make_train_step(model, opt, cfg, ml, mr)
+        _, loss = step(create_train_state(model, opt), batch)
+        torch.cuda.synchronize()
+        runs.append(({k: float(v) for k, v in loss.items()},
+                     {k: v.clone() for k, v in model.state_dict().items()}))
+    return runs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decoder", ["T", "default"])
+def test_bf16_train_step_repeats_bit_for_bit_on_card(decoder):
+    """The train step runs under deterministic algorithms: no op of T's or
+    the default decoder's step raises for want of a deterministic form, and
+    the step repeats to the bit (losses, parameters, BN statistics)."""
+    dev = _cuda_or_skip()
+    from dir_tpu_torch.serve import CONFIG_B
+
+    (loss_a, sd_a), (loss_b, sd_b) = _train_step_twice(
+        dev, CONFIG_B if decoder == "T" else {})
+    assert all(np.isfinite(v) for v in loss_a.values())
+    assert loss_a == loss_b
+    assert [k for k, v in sd_a.items() if not torch.equal(v, sd_b[k])] == []
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["grid_sample_nhwc_mm", "upsample2x"])
+def test_decoder_op_backward_repeats_on_card(op):
+    """The decoder's sampler and upsample, forward and backward to the maps
+    under ``deterministic()`` on bf16 maps of the flagship's 32x32 stage:
+    no raise, and the gradients of two runs equal to the bit."""
+    dev = _cuda_or_skip()
+    from dir_tpu_torch.device import deterministic
+    from dir_tpu_torch.models.layers import upsample2x
+    from dir_tpu_torch.ops.sampling import grid_sample_nhwc_mm
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((16, 32, 32, 256), device=dev, generator=g).to(
+        torch.bfloat16)
+    coords = torch.rand((16, 42, 2), device=dev, generator=g) * 2.2 - 1.1
+    fn = ((lambda v: grid_sample_nhwc_mm(v, coords))
+          if op == "grid_sample_nhwc_mm" else upsample2x)
+    grads = []
+    with deterministic():
+        for _ in range(2):
+            xg = x.detach().requires_grad_(True)
+            out = fn(xg)
+            seed = torch.Generator(device=dev).manual_seed(4)
+            (grad,) = torch.autograd.grad(out, xg, torch.randn(
+                out.shape, device=dev, generator=seed).to(out.dtype))
+            grads.append(grad)
+    torch.cuda.synchronize()
+    assert torch.isfinite(grads[0].float()).all()
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.gpu
+def test_grid_sample_mm_matches_f_grid_sample_on_card():
+    """The selection-matrix sampler against ``F.grid_sample`` on fp32 maps
+    (TF32 off): equal to fp32 rounding, points outside the map included."""
+    dev = _cuda_or_skip()
+    from dir_tpu_torch.ops.sampling import (grid_sample_nhwc,
+                                            grid_sample_nhwc_mm)
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((8, 32, 32, 64), device=dev, generator=g)
+    coords = torch.rand((8, 42, 2), device=dev, generator=g) * 2.4 - 1.2
+    got = grid_sample_nhwc_mm(x, coords)
+    want = grid_sample_nhwc(x, coords)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    # four products of values up to about 4.5, summed in another order
+    assert float((got - want).abs().max()) <= 4 * 2 ** -23 * float(
+        want.abs().max())
 
 
 def _fp32_models(dev, **flags):
