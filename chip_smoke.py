@@ -107,10 +107,21 @@ Phases, in order; any failure ends the run with a non-zero exit code:
   7. serve an fp32 trunk under the fused flags (the bf16 kernels' and C's)
      at cut depth: the kernels take bf16 only, so the guards route the
      blocks unfused;
-  8. print the ``parallel`` line, the ``kernels`` line (launches of the
-     main path: A, B and C served, the B and C artifacts over HTTP, T, F2's
-     runs, the Trainer and the data-parallel runs of 6b, over their ranks),
-     then the one-line result.
+  8. the bench: ``python -m dir_tpu_torch.bench`` (the counterpart of
+     bench.py) at its full protocol in its own process, its last line
+     holding bench.py's keys, all positive, and the card's name; K1's
+     launches counted here over one unrolled eval call of the bench's
+     flagship at batch 256 (8 forwards, K1 twice each, nothing else); then
+     each measurement tool (``dir_tpu_torch/tools``: serving latency, train
+     step, loader-fed training, input pipelines, int8 accuracy, concurrent
+     HTTP serving; ``profile_serve --batches 256``) once at cut repetitions,
+     all at once, each in its own process, their lines printed; any
+     failure fails the run;
+  9. print the ``parallel`` line, the ``bench`` line, the ``kernels`` line
+     (launches of the main path: A, B and C served, the B and C artifacts
+     over HTTP, T, F2's runs, the Trainer and the data-parallel runs of 6b,
+     over their ranks, and the bench's eval call), then the one-line
+     result.
 """
 
 import argparse
@@ -290,6 +301,35 @@ DP_SUMMARY_RTOL = 1e-4
 # and the seconds it may take.
 CONVERGENCE_RATIO = 0.75
 CONVERGENCE_TIMEOUT = 400
+# The bench phase: ``python -m dir_tpu_torch.bench`` at its full protocol and
+# the seconds it may take; the keys its last line must carry (bench.py's and
+# the card's); the unrolled eval call whose launches are counted in this
+# process; then every measurement tool once at cut repetitions, all at once,
+# each in its own process, and the seconds they may take together.
+BENCH_TIMEOUT = 480
+BENCH_KEYS = ("value", "vs_baseline", "train_step_ms_b64", "train_img_per_sec",
+              "serving_int8_static_img_per_sec")
+BENCH_UNROLL = 8
+TOOLS_TIMEOUT = 360
+TOOLS = (
+    ("bench_serve_latency", ["-m", "dir_tpu_torch.tools.bench_serve_latency"],
+     {"ITERS": "3"}),
+    ("bench_train", ["-m", "dir_tpu_torch.tools.bench_train"],
+     {"ITERS": "2"}),
+    ("bench_train_pipeline", ["-m", "dir_tpu_torch.tools.bench_train_pipeline",
+                              "--device", "--steps", "2", "--samples", "32",
+                              "--batch", "16"], {}),
+    ("bench_input_pipeline", ["-m", "dir_tpu_torch.tools.bench_input_pipeline",
+                              "--device", "--n", "16", "--batch", "8"], {}),
+    ("quant_accuracy", ["-m", "dir_tpu_torch.tools.quant_accuracy",
+                        "--samples", "4", "--bs", "4", "--fused_bottleneck"],
+     {}),
+    ("bench_serve_concurrent",
+     ["-m", "dir_tpu_torch.tools.bench_serve_concurrent"],
+     {"CLIENTS": "4", "REQS": "3", "MB": "4", "BUCKETS": "1,4"}),
+    ("profile_serve", ["-m", "dir_tpu_torch.profile_serve", "--batches",
+                       "256"], {}),
+)
 
 
 def say(msg: str) -> None:
@@ -2610,6 +2650,98 @@ def f1_phase(mods):
     return errs
 
 
+def bench_phase(mods):
+    """``python -m dir_tpu_torch.bench`` at its full protocol in its own
+    process, its last line held to bench.py's keys; K1's launches counted
+    here over one unrolled eval call of the bench's flagship (2 a forward);
+    then each tool of ``dir_tpu_torch/tools`` and ``profile_serve`` at the
+    bench's batch once, at cut repetitions, all at once, each in its own
+    process. Prints every line; returns the counts and the bench's
+    record."""
+    from dir_tpu_torch import bench
+
+    t = time.monotonic()
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, "-m", "dir_tpu_torch.bench"],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        say(f"bench: {line}")
+    if proc.returncode or not lines:
+        raise RuntimeError(f"the bench exited with {proc.returncode}: "
+                           f"{proc.stderr[-3000:]}")
+    record = json.loads(lines[-1])
+    bad = [k for k in BENCH_KEYS
+           if not (np.isfinite(record.get(k, np.nan)) and record[k] > 0)]
+    if bad or "error" in record or "serving_int8_static_error" in record \
+            or "H100" not in record.get("device", ""):
+        raise RuntimeError(f"the bench's line lacks or fails {bad}: {record}")
+    bench_seconds = time.monotonic() - t
+
+    model, _, mano_l, mano_r = bench.conditioned_flagship(
+        torch.device("cuda"), **bench.eval_flags(0, False, True))
+    img = torch.from_numpy(np.random.RandomState(0).randn(
+        bench.BATCH, 256, 256, 3).astype(np.float32)).cuda()
+    images = torch.stack([img] * BENCH_UNROLL)
+    call = bench.eval_call(model, mano_l, mano_r, BENCH_UNROLL)
+    call(images)
+    torch.cuda.synchronize()
+    reset_counts(mods)
+    outs = call(images)
+    torch.cuda.synchronize()
+    launches = kernel_counts(mods)
+    want = tuple(BENCH_UNROLL * n for n in EXPECTED["A"])
+    say(f"bench: one eval call of {BENCH_UNROLL} forwards at batch "
+        f"{bench.BATCH} launched {KERNELS} {launches} (expected {want})")
+    if launches != want:
+        raise RuntimeError("the bench's eval call did not launch K1 twice a "
+                           "forward")
+    bench.check_finite([x for triple in outs for x in triple], "bench eval")
+    del model, img, images, outs
+    torch.cuda.empty_cache()
+
+    t_tools = time.monotonic()
+    logs = os.path.join(REPO, "build", "chip_smoke_tools")
+    shutil.rmtree(logs, ignore_errors=True)
+    os.makedirs(logs)
+    running = []
+    try:
+        for name, argv, env in TOOLS:
+            out = open(os.path.join(logs, f"{name}.out"), "w")
+            err = open(os.path.join(logs, f"{name}.err"), "w")
+            running.append((name, out, err, subprocess.Popen(
+                [sys.executable, *argv], cwd=REPO, stdout=out, stderr=err,
+                env=dict(os.environ, **env))))
+        deadline = time.monotonic() + TOOLS_TIMEOUT
+        failed = []
+        for name, out, err, p in running:
+            rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            out.close()
+            err.close()
+            with open(out.name) as f:
+                for line in f.read().strip().splitlines():
+                    say(f"{name}: {line}")
+            if rc:
+                with open(err.name) as f:
+                    say(f"{name}: exited with {rc}: {f.read()[-3000:]}")
+                failed.append(name)
+    finally:
+        for _, _, _, p in running:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    tools_seconds = time.monotonic() - t_tools
+    shutil.rmtree(logs, ignore_errors=True)
+    say(f"bench phase: the bench {bench_seconds:.1f} s, the tools together "
+        f"{tools_seconds:.1f} s, {time.monotonic() - t:.1f} s in all")
+    if failed:
+        raise RuntimeError(f"tools failed: {failed}")
+    return launches, {"line": record, "seconds": time.monotonic() - t,
+                      "bench_seconds": bench_seconds,
+                      "tools_seconds": tools_seconds}
+
+
 def multi_card(mods, devices: int) -> int:
     """``--devices N``: the data-parallel phase alone, its ranks over NCCL,
     one a card, on the Trainer's synthetic split; prints the parallel line
@@ -2702,6 +2834,7 @@ def main(argv=None) -> int:
     for key, err in fed_err.items():
         served_err[key] = max(served_err[key], err)
     f1 = f1_phase(mods)
+    launches["bench"], bench_run = bench_phase(mods)
 
     # times and bound at the path's shape (the identity form for K1 and K2,
     # the layer1 shape for K3, the larger stage for K5); the error is the
@@ -2710,8 +2843,9 @@ def main(argv=None) -> int:
     # train steps and the Trainer's runs. K4 is on no path: its entry holds
     # its standalone check and 0 launches.
     runs = list(CONFIGS) + ["artifact B", "artifact C", "T", "F2", "trainer",
-                            "dp"]
+                            "dp", "bench"]
     expected = dict(EXPECTED, trainer=EXPECTED_TRAINER_EVAL,
+                    bench=EXPECTED["A"],
                     dp=tuple(max(a, b) for a, b in zip(
                         EXPECTED_TRAINER_EVAL, EXPECTED["C"])),
                     F2=EXPECTED["T"],
@@ -2764,6 +2898,7 @@ def main(argv=None) -> int:
           flush=True)
     print(json.dumps({"artifact": artifact}), flush=True)
     print(json.dumps({"parallel": parallel}), flush=True)
+    print(json.dumps({"bench": bench_run}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

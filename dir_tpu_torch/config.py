@@ -79,8 +79,11 @@ class ModelConfig:
     # QUANT_FUSED_L2 environment variables at import.
     quant_fused: bool = False
     quant_fused_l2_bands: int = 0
-    # MANO contraction precision of the JAX package; the port always
-    # runs MANO in full fp32.
+    # MANO contraction precision of the JAX package ("high" is bf16x3 on a
+    # TPU, plain fp32 on the CPU). The port accepts it and reads it
+    # nowhere: MANO runs in fp32 with TF32 off in every case, which equals
+    # dir_tpu on the CPU; Hopper has no counterpart of the TPU's bf16x3
+    # pass that is not less precise.
     mano_precision: str = "highest"
     # Factored 3x3 fusion conv through the rank-1 splat structure.
     fused_splat_conv: bool = True

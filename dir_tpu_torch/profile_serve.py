@@ -5,7 +5,8 @@ configuration A (the default: factored splat conv), B (``--config B``:
 fused bottleneck at layer2 too, materialized bone splat through its
 kernel) or C (``--config C``: int8 static serving with the fused int8
 bottleneck, calibrated here on 8 seeded images), warms it up, then traces
-one request at each of batch 1, 8 and 64 with
+one request at each of batch 1, 8 and 64 (``--batches``; 256 is
+``tools/profile_eval.py``'s and ``bench.py``'s batch) with
 ``torch.profiler`` and prints, per batch, one JSON line: the request's
 wall time, the device's busy time and idle share over it, the number of
 kernel launches, and the 15 kernels that take the most device time; the
@@ -14,29 +15,30 @@ step of configuration T instead (B's decoder flags, so K5 runs in the
 forward; bench.py:bench_train's seeded batch of 64) and adds the step's
 peak memory. Run from the repository root on a machine with a CUDA device:
 
-    python -m dir_tpu_torch.profile_serve [--config {A,B,C,T}]
+    python -m dir_tpu_torch.profile_serve [--config {A,B,C,T}] \
+        [--batches 1,8,64]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from dir_tpu_torch.bench import card
 from dir_tpu_torch.serve import (CONFIG_B, CONFIG_C, build_flagship,
                                  calibrate_static_scales, condition_random_,
                                  make_infer)
 
-BATCHES = (1, 8, 64)
+BATCHES = "1,8,64"
 TOP = 15
 
 
-def _busy_us(events) -> float:
+def busy_us(events) -> float:
     """Union of the device kernels' intervals, in microseconds."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, end = 0.0, float("-inf")
@@ -52,23 +54,10 @@ def _busy_us(events) -> float:
 
 def train_batch(b: int, seed: int = 0, device="cuda") -> dict:
     """bench.py:bench_train's seeded synthetic batch, on ``device``."""
-    rng = np.random.RandomState(seed)
-    arrays = {
-        "img": rng.randn(b, 256, 256, 3).astype(np.float32),
-        "joint_2d_left": rng.randn(b, 21, 3).astype(np.float32),
-        "joint_2d_right": rng.randn(b, 21, 3).astype(np.float32),
-        "mesh_2d_left": rng.randn(b, 778, 3).astype(np.float32),
-        "mesh_2d_right": rng.randn(b, 778, 3).astype(np.float32),
-        "joint_3d_left": rng.randn(b, 21, 3).astype(np.float32) * 0.1,
-        "joint_3d_right": rng.randn(b, 21, 3).astype(np.float32) * 0.1,
-        "mesh_3d_left": rng.randn(b, 778, 3).astype(np.float32) * 0.1,
-        "mesh_3d_right": rng.randn(b, 778, 3).astype(np.float32) * 0.1,
-        "center_left": rng.randn(b, 1, 3).astype(np.float32) * 0.1,
-        "center_right": rng.randn(b, 1, 3).astype(np.float32) * 0.1,
-        "seg": rng.randint(0, 3, size=(b, 256, 256)).astype(np.int32),
-        "dense": rng.rand(b, 256, 256, 3).astype(np.float32),
-    }
-    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    from dir_tpu_torch.bench import train_batch as arrays
+
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in arrays(b, seed).items()}
 
 
 def profile_train_step(batch: int = 64) -> dict:
@@ -103,7 +92,7 @@ def profile_request(infer, img) -> dict:
         wall_us = (time.perf_counter() - t) * 1e6
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = _busy_us(kernels)
+    busy = busy_us(kernels)
     by_name: dict = {}
     for e in kernels:
         n, us = by_name.get(e.name, (0, 0.0))
@@ -120,35 +109,35 @@ def profile_request(infer, img) -> dict:
     }
 
 
-def _card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-
-
-def main() -> None:
+def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config", choices=("A", "B", "C", "T"),
                         default="A")
-    args = parser.parse_args()
+    parser.add_argument("--batches", default=BATCHES,
+                        help="comma-separated batch sizes of the traced "
+                             "requests (A, B, C)")
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.config == "T":
-        print(_card(), flush=True)
+        print(card(torch.device("cuda")), flush=True)
         print(json.dumps({"config": "T", **profile_train_step()}), flush=True)
         return
     model, _, mano_l, mano_r = build_flagship(
         device="cuda", seed=0,
         **{"A": {}, "B": CONFIG_B, "C": CONFIG_C}[args.config])
     infer = make_infer(model, mano_l, mano_r)
-    print(_card(), flush=True)
+    print(card(torch.device("cuda")), flush=True)
     rng = np.random.RandomState(0)
     if args.config == "C":
         calibrate_static_scales(
             model, rng.randn(8, 256, 256, 3).astype(np.float32), mano_l,
             mano_r)
-    for b in BATCHES:
+    for b in (int(x) for x in args.batches.split(",")):
         img = rng.randn(b, 256, 256, 3).astype(np.float32)
         print(json.dumps({"config": args.config,
                           **profile_request(infer, img)}), flush=True)

@@ -98,7 +98,8 @@ def build_flagship(device=None, dtype: str = "bfloat16",
                    quant_backbone_eval: bool = False,
                    quant_decoder_eval: bool = False,
                    quant_aux_eval: bool = False, quant_static: bool = False,
-                   quant_fused: bool = False, quant_fused_l2_bands: int = 0):
+                   quant_fused: bool = False, quant_fused_l2_bands: int = 0,
+                   **overrides):
     """The flagship DIR model (ResNet-50) in eval mode with seeded random
     weights, and the MANO pair of :func:`flagship_mano`.
 
@@ -109,7 +110,9 @@ def build_flagship(device=None, dtype: str = "bfloat16",
     ``**CONFIG_C`` is configuration C: int8 static serving (the fused
     bf16 kernel off, the fused int8 kernel on), which serves only after
     :func:`calibrate_static_scales`. All hold the same parameters, so one
-    ``state_dict`` loads into any of them.
+    ``state_dict`` loads into any of them. ``overrides`` are further
+    :class:`ModelConfig` fields (``backbone_stem``, ``backbone_layers``,
+    ...), as ``__graft_entry__._flagship`` takes them.
 
     Runs on CUDA unless ``device`` names another device; raises when no
     card is present and none was named. Returns
@@ -126,7 +129,7 @@ def build_flagship(device=None, dtype: str = "bfloat16",
                       quant_decoder_eval=quant_decoder_eval,
                       quant_aux_eval=quant_aux_eval,
                       quant_static=quant_static, quant_fused=quant_fused,
-                      quant_fused_l2_bands=quant_fused_l2_bands)
+                      quant_fused_l2_bands=quant_fused_l2_bands, **overrides)
     model = random_init_(DIR(cfg), seed).to(dev).eval()
     mano_l, mano_r = (m.to(dev) for m in flagship_mano())
     return model, cfg, mano_l, mano_r

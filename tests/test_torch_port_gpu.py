@@ -1225,3 +1225,56 @@ def test_global_batch_norm_matches_sync_batch_norm(tmp_path):
         errs = r["sync_bn"]
         print(f"global BN against SyncBatchNorm: {errs}")
         assert max(errs.values()) <= 1e-5, errs
+
+
+@pytest.mark.gpu
+def test_bench_line_on_card():
+    """``python -m dir_tpu_torch.bench`` at a cut protocol on the card: one
+    JSON line, last, with bench.py's keys and the card's name, every
+    number positive; the traced call's and the sync report's lines
+    before it."""
+    _cuda_or_skip()
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, BENCH_BATCH="8", BENCH_TRAIN_BATCH="4",
+               EVAL_UNROLL="2", UNROLL="2")
+    proc = subprocess.run([sys.executable, "-m", "dir_tpu_torch.bench"],
+                          cwd=repo, env=env, capture_output=True, text=True,
+                          timeout=900)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines))
+    rec = json.loads(lines[-1])
+    assert sum(ln.startswith("{") for ln in lines) == 1
+    for key in ("value", "vs_baseline", "train_step_ms_b64",
+                "train_img_per_sec", "serving_int8_static_img_per_sec"):
+        assert rec[key] > 0, key
+    assert rec["metric"] == "dir_eval_images_per_sec"
+    assert "error" not in rec and "H100" in rec["device"]
+    assert any("device busy" in ln for ln in lines)
+    assert any("host syncs" in ln for ln in lines)
+
+
+@pytest.mark.gpu
+def test_bench_eval_call_launches_k1_twice_a_forward():
+    """The bench's unrolled eval call on its flagship flags at cut depth:
+    K1 at layer1_1 and layer1_2 of every forward, the outputs finite."""
+    dev = _cuda_or_skip()
+    from dir_tpu_torch import bench
+
+    model, _, ml, mr = bench.conditioned_flagship(
+        dev, **dict(bench.eval_flags(0, False, True),
+                    backbone_layers=(3, 1, 1, 1)))
+    img = torch.from_numpy(np.random.RandomState(0).randn(
+        2, 2, 256, 256, 3).astype(np.float32)).to(dev)
+    call = bench.eval_call(model, ml, mr, unroll=2)
+    call(img)
+    before = fb.fused_bottleneck_infer.launches
+    outs = call(img)
+    torch.cuda.synchronize()
+    assert fb.fused_bottleneck_infer.launches - before == 4
+    bench.check_finite([t for triple in outs for t in triple], "eval")
