@@ -114,14 +114,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      flagship at batch 256 (8 forwards, K1 twice each, nothing else); then
      each measurement tool (``dir_tpu_torch/tools``: serving latency, train
      step, loader-fed training, input pipelines, int8 accuracy, concurrent
-     HTTP serving; ``profile_serve --batches 256``) once at cut repetitions,
-     all at once, each in its own process, their lines printed; any
-     failure fails the run;
+     HTTP serving, component times; ``profile_serve --batches 256``) once
+     at cut repetitions, all at once, each in its own process, their lines
+     printed; the component tool's lines held (the JAX tool's nine entries
+     by name and in order, each after its traced ``component`` line, K5
+     launched once on each ``_pallas`` entry and on no other); the tool's
+     splats at its batch-64 draws, K5 against its plain version in this
+     process; any failure fails the run;
   9. print the ``parallel`` line, the ``bench`` line, the ``kernels`` line
      (launches of the main path: A, B and C served, the B and C artifacts
      over HTTP, T, F2's runs, the Trainer and the data-parallel runs of 6b,
-     over their ranks, and the bench's eval call), then the one-line
-     result.
+     over their ranks, the bench's eval call and, for K5, the component
+     tool's traced calls), then the one-line result.
 """
 
 import argparse
@@ -129,6 +133,7 @@ import collections
 import dataclasses
 import json
 import os
+import re
 
 # cuBLAS is deterministic only with a fixed workspace; set before torch loads
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -329,7 +334,13 @@ TOOLS = (
      {"CLIENTS": "4", "REQS": "3", "MB": "4", "BUCKETS": "1,4"}),
     ("profile_serve", ["-m", "dir_tpu_torch.profile_serve", "--batches",
                        "256"], {}),
+    ("bench_components", ["-m", "dir_tpu_torch.tools.bench_components"], {}),
 )
+# The component tool's two lines per entry: the traced call's, then the JAX
+# tool's (tools/bench_components.py:30-31).
+COMPONENT_LINE = re.compile(r"component (\S+): device_ms=([\d.]+) "
+                            r"launches=(\d+) busy=([\d.]+)% k5=(\d+)$")
+COMPONENT_JAX_LINE = re.compile(r"(\S+): ([\d.]+) ms/iter \((\d+) img/s\)$")
 
 
 def say(msg: str) -> None:
@@ -2650,14 +2661,59 @@ def f1_phase(mods):
     return errs
 
 
+def hold_components(text: str) -> dict:
+    """The component tool's output: the JAX tool's nine entries by name and
+    in order, each line after its ``component`` line, K5 launched once by
+    the traced call of each ``_pallas`` entry and by no other. Returns each
+    entry's numbers."""
+    from dir_tpu_torch.tools.bench_components import NAMES
+
+    lines = [ln for ln in text.splitlines()
+             if COMPONENT_LINE.match(ln) or COMPONENT_JAX_LINE.match(ln)]
+    if len(lines) != 2 * len(NAMES):
+        raise RuntimeError(f"bench_components printed {len(lines)} entry "
+                           f"lines, not {2 * len(NAMES)}")
+    records = {}
+    for name, comp, line in zip(NAMES, lines[0::2], lines[1::2]):
+        c, j = COMPONENT_LINE.match(comp), COMPONENT_JAX_LINE.match(line)
+        if not (c and j and c.group(1) == j.group(1) == name):
+            raise RuntimeError(f"bench_components: expected {name}, read "
+                               f"{comp!r} then {line!r}")
+        k5 = int(c.group(5))
+        if k5 != int(name.endswith("_pallas")):
+            raise RuntimeError(f"bench_components: {name} launched K5 {k5} "
+                               "times")
+        records[name] = {"ms": float(j.group(2)),
+                         "img_per_s": int(j.group(3)),
+                         "device_ms": float(c.group(2)),
+                         "launches": int(c.group(3)),
+                         "busy_pct": float(c.group(4)), "k5": k5}
+    return records
+
+
+def components_splat_check(bs) -> float:
+    """The component tool's splats at its batch-64 draws: K5 against its
+    plain version at both stage sizes (comparison launches, not counted)."""
+    from dir_tpu_torch.tools import bench_components as tool
+
+    data = tool.draws(tool.BATCH)
+    uv = torch.from_numpy(data["uv"]).cuda()
+    feat = torch.from_numpy(data["feat"]).to("cuda", torch.bfloat16)
+    return max(compare_splat(bs, uv, feat, size, distance,
+                             f"bench_components (B {tool.BATCH}, S {size}, "
+                             f"distance {distance})")
+               for size, distance in tool.SPLATS)
+
+
 def bench_phase(mods):
     """``python -m dir_tpu_torch.bench`` at its full protocol in its own
     process, its last line held to bench.py's keys; K1's launches counted
     here over one unrolled eval call of the bench's flagship (2 a forward);
     then each tool of ``dir_tpu_torch/tools`` and ``profile_serve`` at the
     bench's batch once, at cut repetitions, all at once, each in its own
-    process. Prints every line; returns the counts and the bench's
-    record."""
+    process; the component tool's lines held and its splats checked. Prints
+    every line; returns the counts, K5's launches in the component tool's
+    traced calls and the bench's record."""
     from dir_tpu_torch import bench
 
     t = time.monotonic()
@@ -2720,8 +2776,11 @@ def bench_phase(mods):
             out.close()
             err.close()
             with open(out.name) as f:
-                for line in f.read().strip().splitlines():
-                    say(f"{name}: {line}")
+                text = f.read()
+            for line in text.strip().splitlines():
+                say(f"{name}: {line}")
+            if name == "bench_components" and not rc:
+                components = hold_components(text)
             if rc:
                 with open(err.name) as f:
                     say(f"{name}: exited with {rc}: {f.read()[-3000:]}")
@@ -2737,9 +2796,15 @@ def bench_phase(mods):
         f"{tools_seconds:.1f} s, {time.monotonic() - t:.1f} s in all")
     if failed:
         raise RuntimeError(f"tools failed: {failed}")
-    return launches, {"line": record, "seconds": time.monotonic() - t,
-                      "bench_seconds": bench_seconds,
-                      "tools_seconds": tools_seconds}
+    k5_components = sum(r["k5"] for r in components.values())
+    say(f"bench_components: nine entries in the JAX tool's order, K5 "
+        f"launched {k5_components} times in their traced calls (once by "
+        "each _pallas entry)")
+    splat_err = components_splat_check(mods[3])
+    return launches, k5_components, {
+        "line": record, "seconds": time.monotonic() - t,
+        "bench_seconds": bench_seconds, "tools_seconds": tools_seconds,
+        "components": components, "components_k5_max_abs_err": splat_err}
 
 
 def multi_card(mods, devices: int) -> int:
@@ -2834,14 +2899,17 @@ def main(argv=None) -> int:
     for key, err in fed_err.items():
         served_err[key] = max(served_err[key], err)
     f1 = f1_phase(mods)
-    launches["bench"], bench_run = bench_phase(mods)
+    launches["bench"], k5_components, bench_run = bench_phase(mods)
+    served_err["K5"] = max(served_err["K5"],
+                           bench_run["components_k5_max_abs_err"])
 
     # times and bound at the path's shape (the identity form for K1 and K2,
     # the layer1 shape for K3, the larger stage for K5); the error is the
     # worst of that check and the served and in-loop eval inputs' checks;
     # launches are the main path's, over A's, B's and C's requests, T's
-    # train steps and the Trainer's runs. K4 is on no path: its entry holds
-    # its standalone check and 0 launches.
+    # train steps and the Trainer's runs; K5's also the component tool's
+    # traced calls. K4 is on no path: its entry holds its standalone check
+    # and 0 launches.
     runs = list(CONFIGS) + ["artifact B", "artifact C", "T", "F2", "trainer",
                             "dp", "bench"]
     expected = dict(EXPECTED, trainer=EXPECTED_TRAINER_EVAL,
@@ -2851,19 +2919,21 @@ def main(argv=None) -> int:
                     F2=EXPECTED["T"],
                     **{f"artifact {n}": EXPECTED[n] for n in "BC"})
 
-    def entry(key, name, source, replaces, at_shape, **more):
+    def entry(key, name, source, replaces, at_shape, elsewhere=None,
+              **more):
         index = KERNELS.index(key)
         if (any(expected[n][index] for n in runs)
                 and not all(launches[n][index] for n in runs
                             if expected[n][index])):
             raise RuntimeError(f"{key} is on the main path and was not "
                                "launched there")
+        by_run = {n: launches[n][index] for n in runs}
+        by_run.update(elsewhere or {})
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(launches[n][index] for n in runs),
-            "launches_by_configuration": {n: launches[n][index]
-                                          for n in runs},
+            "launches": sum(by_run.values()),
+            "launches_by_configuration": by_run,
             "max_abs_err": max(at_shape["max_abs_err"], served_err[key]),
             "ms": at_shape["ms"], "plain_ms": at_shape["plain_ms"],
             "bound_ms": at_shape["bound_ms"],
@@ -2890,7 +2960,8 @@ def main(argv=None) -> int:
               "dir_tpu_torch/csrc/fused_stem_bottleneck.cu",
               "dir_tpu/ops/pallas_bottleneck.py:169", k4),
         entry("K5", "bone_splat", "dir_tpu_torch/csrc/bone_splat.cu",
-              "dir_tpu/ops/pallas_bone_splat.py:36", k5[0], stage1=k5[1]),
+              "dir_tpu/ops/pallas_bone_splat.py:36", k5[0],
+              elsewhere={"bench_components": k5_components}, stage1=k5[1]),
     ]}
     say(f"serve: worst final-stage err {worst_mm} mm; latency ms {latency}; "
         f"vs fp32 through batch_metrics {metrics}")

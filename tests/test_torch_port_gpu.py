@@ -1278,3 +1278,29 @@ def test_bench_eval_call_launches_k1_twice_a_forward():
     torch.cuda.synchronize()
     assert fb.fused_bottleneck_infer.launches - before == 4
     bench.check_finite([t for triple in outs for t in triple], "eval")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size,distance", [(32, 2.0), (16, 1.0)])
+def test_bench_components_splats_on_the_card(size, distance):
+    """``tools/bench_components.py``'s ``_pallas`` splat (K5) against its
+    ``_jnp`` splat (the plain version) on the tool's batch-64 draws, within
+    K5's bound: one bf16 ulp outside the threshold pairs, at most 0.1 % of
+    the pairs left out; one launch."""
+    dev = _cuda_or_skip()
+    from dir_tpu_torch.tools import bench_components as tool
+
+    data = tool.draws(tool.BATCH)
+    uv = torch.from_numpy(data["uv"]).to(dev)
+    feat = torch.from_numpy(data["feat"]).to(dev, torch.bfloat16)
+    before = bs.bone_splat.launches
+    out = tool.splat(size, distance, True)(uv, feat)
+    assert bs.bone_splat.launches == before + 1
+    ref = tool.splat(size, distance, False)(uv, feat)
+    torch.cuda.synchronize()
+    assert bs.bone_splat.launches == before + 1
+    assert out.shape == ref.shape == (tool.BATCH, size, size, 1280)
+    assert torch.isfinite(out).all()
+    near = bs.threshold_pairs(uv, size, distance)
+    err, tol, left_out = bs.mismatch_outside_threshold(out, ref, near)
+    assert left_out <= 1e-3 and err <= tol, (err, tol, left_out)
