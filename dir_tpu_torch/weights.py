@@ -441,16 +441,30 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
     parameter heads, the graph convs' torch xavier-uniform, and BatchNorm
     scales and shifts near 1 and 0 (running statistics stay at mean 0,
     variance 1, as ``init`` leaves them in the JAX package). All draws
-    come from one CPU ``torch.Generator``."""
+    come from one ``np.random.RandomState``, whose stream numpy keeps
+    fixed: a seed draws the same weights under any torch version (torch's
+    own generator drew other weights under torch 2.11 than under 2.13)."""
     from dir_tpu_torch.models.gcn import PGraphConv
 
-    g = torch.Generator().manual_seed(seed)
+    rng = np.random.RandomState(seed)
+
+    def put(w: torch.Tensor, values: np.ndarray) -> None:
+        w.copy_(torch.from_numpy(values.astype(np.float32)).reshape(w.shape))
 
     def trunc(w: torch.Tensor, fan: int, scale: float) -> None:
         # variance_scaling(truncated_normal): the std of the truncated
-        # draw is sqrt(scale / fan)
+        # draw is sqrt(scale / fan); a normal within 2 of its std, by
+        # rejection
         std = math.sqrt(scale / fan) / 0.87962566103423978
-        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
+        v = rng.standard_normal(w.numel())
+        out = np.abs(v) > 2.0
+        while out.any():
+            v[out] = rng.standard_normal(int(out.sum()))
+            out = np.abs(v) > 2.0
+        put(w, v * std)
+
+    def uniform(w: torch.Tensor, low: float, high: float) -> None:
+        put(w, rng.uniform(low, high, w.numel()))
 
     with torch.no_grad():
         for name, m in model.named_modules():
@@ -465,13 +479,14 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
             elif isinstance(m, nn.Linear):
                 head = name.rsplit(".", 1)[-1]
                 if head in _HEAD_NAMES:
-                    m.weight.normal_(0.0, 1e-3, generator=g)
+                    put(m.weight, rng.standard_normal(m.weight.numel())
+                        * 1e-3)
                 else:
                     trunc(m.weight, m.weight.shape[1], 1.0)
                 m.bias.zero_()
             elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
-                m.weight.uniform_(0.8, 1.2, generator=g)
-                m.bias.uniform_(-0.1, 0.1, generator=g)
+                uniform(m.weight, 0.8, 1.2)
+                uniform(m.bias, -0.1, 0.1)
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
@@ -479,11 +494,10 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
                 _, j, cin, cout = m.W.shape
                 bound = 1.414 * math.sqrt(6.0 / (j * cin * cout
                                                  + 2 * cin * cout))
-                m.W.uniform_(-bound, bound, generator=g)
+                uniform(m.W, -bound, bound)
                 m.e_0.fill_(1.0)
                 m.e_1.fill_(1.0)
-                m.bias.uniform_(-1 / math.sqrt(j), 1 / math.sqrt(j),
-                                generator=g)
+                uniform(m.bias, -1 / math.sqrt(j), 1 / math.sqrt(j))
         for name, p in model.named_parameters():
             if name.endswith("spatial_pos_embed"):
                 p.zero_()
