@@ -329,10 +329,11 @@ CONVERGENCE_TIMEOUT = 400
 # process; then every measurement tool once at cut repetitions, all at once,
 # each in its own process, and the seconds they may take together.
 BENCH_TIMEOUT = 480
-# The bench at cut repetitions (1 warm-up and 2 timed calls of each half,
-# against its 3 and 10): this phase checks its line, the bench measures
-# alone.
-BENCH_ENV = {"BENCH_WARMUP": "1", "BENCH_ITERS": "2"}
+# The bench at cut repetitions (1 warm-up and 2 timed calls of each half
+# against its 3 and 10, 2 forwards or steps a call against its 8): this
+# phase checks its line, the bench measures alone.
+BENCH_ENV = {"BENCH_WARMUP": "1", "BENCH_ITERS": "2", "EVAL_UNROLL": "2",
+             "UNROLL": "2"}
 BENCH_KEYS = ("value", "vs_baseline", "train_step_ms_b64", "train_img_per_sec",
               "serving_int8_static_img_per_sec")
 BENCH_UNROLL = 8

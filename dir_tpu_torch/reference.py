@@ -61,11 +61,10 @@ FINAL_KEYS = ("pd_joint_xyz_left", "pd_joint_xyz_right",
 SPLATS = ((1, 16, 1.0), (2, 32, 2.0))
 # A (pixel, bone) pair this close to its splat's distance threshold (px) may
 # fall on either side of the mask's step under another fp32 rounding of the
-# joints: the port's fp32 joints stand within 8e-6 of the record's in uv,
-# 1.3e-4 px at 32. The record's four images have two such pairs (5.2e-5 px
-# at image 0's first splat, 3.8e-5 px at image 3's second; the next is
-# 4.5e-4 px away), and on the card the second moved image 3's logits by 0.40
-# at fp32.
+# joints: the port's fp32 joints stand within 8.2e-6 of the record's in uv,
+# 1.3e-4 px at 32. The record's four images have two such pairs (image 0 at
+# stage 1's splat, image 3 at stage 2's), and on the card one moved the fp32
+# logits by 0.40.
 NEAR_THRESHOLD_PX = 3e-4
 # A gradient norm is held relative to the larger of its own and this share
 # of the largest norm: a conv bias feeding a train-mode BatchNorm has a
