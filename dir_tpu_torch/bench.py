@@ -48,10 +48,6 @@ The keys, knobs and protocol are ``bench.py``'s:
   ``BENCH_EVAL=0`` or an explicit ``QUANT``.
 
 ``BENCH_EVAL=0`` and ``BENCH_TRAIN=0`` skip a half, as in ``bench.py``.
-``BENCH_WARMUP`` and ``BENCH_ITERS`` (port only; 3 and 10) set the warm-up
-and timed calls of every half, for a run that checks the bench's line
-rather than measures (``chip_smoke.py`` phase 8); ``value`` then divides by
-``ITERS``.
 ``vs_baseline`` divides by the same fixed estimate of the reference PyTorch
 implementation's eval throughput on one A100 (1000 img/s,
 ``bench.py:49``): an engineering estimate, not a measurement. ``device``
@@ -111,10 +107,8 @@ A100_EST_IMG_PER_SEC = 1000.0
 # 256 matches the reference's eval batch size (apps/eval.py:92)
 BATCH = int(os.environ.get("BENCH_BATCH", "256"))
 TRAIN_BATCH = int(os.environ.get("BENCH_TRAIN_BATCH", "64"))
-# warm-up and timed calls of each half (bench.py's 3 and 10); fewer only
-# where a run checks the bench rather than measures it
-WARMUP = int(os.environ.get("BENCH_WARMUP", "3"))
-ITERS = int(os.environ.get("BENCH_ITERS", "10"))
+WARMUP = 3
+ITERS = 10
 
 
 def bench_device() -> torch.device:

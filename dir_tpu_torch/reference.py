@@ -66,6 +66,9 @@ SPLATS = ((1, 16, 1.0), (2, 32, 2.0))
 # stage 1's splat, image 3 at stage 2's), and on the card one moved the fp32
 # logits by 0.40.
 NEAR_THRESHOLD_PX = 3e-4
+# The seg labels are compared where the record's top logit leads the next
+# by more than this: rounding flips the labels of the pixels in between.
+SEG_MARGIN = 4.0
 # A gradient norm is held relative to the larger of its own and this share
 # of the largest norm: a conv bias feeding a train-mode BatchNorm has a
 # gradient that is 0 in exact arithmetic, rounding noise in fp32.
@@ -221,6 +224,20 @@ def errors(got: dict, want: dict, rows=slice(None), first=None) -> dict:
         err = float(np.abs(g.astype(np.float64) - w).max())
         worst[kind(name)] = max(worst.get(kind(name), 0.0), err)
     return worst
+
+
+def head_errors(got: dict, want: dict) -> dict:
+    """The seg/dense heads by what they are for: the share of pixels whose
+    seg label (argmax) differs from the record's, among those where the
+    record's top logit leads by more than :data:`SEG_MARGIN`; and the dense
+    map's RMS error over the record's RMS."""
+    seg, top = got["seg"], np.sort(want["seg"], -1)
+    sure = top[..., -1] - top[..., -2] > SEG_MARGIN
+    flipped = seg.argmax(-1) != want["seg"].argmax(-1)
+    dense = want["dense"].astype(np.float64)
+    return {"seg_label_share": float(flipped[sure].mean()),
+            "dense_rel_rms": float(np.sqrt(((got["dense"] - dense) ** 2).mean()
+                                           / (dense ** 2).mean()))}
 
 
 def final_mm(got: dict, want: dict, rows=slice(None)) -> float:
