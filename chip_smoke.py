@@ -2410,14 +2410,15 @@ def cuda_ops(fn) -> int:
     """Device operations (kernels, copies, fills) that one call of ``fn``
     ran, from a ``torch.profiler`` trace of the card; 0 where the trace saw
     none."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from dir_tpu_torch.utils.profiling import device_events
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return len(device_events(prof))
 
 
 def post(url: str, img: np.ndarray) -> dict:

@@ -8,7 +8,11 @@ kernels' op registrations and the exported program).
 Protocol (stdlib-only on both ends):
     GET  /healthz          -> 200 "ok"
     GET  /stats            -> JSON {requests, images, dispatches,
-                              avg_latency_ms, avg_batch}
+                              avg_latency_ms, avg_queue_wait_ms,
+                              avg_batch}; avg_queue_wait_ms is a
+                              request's wait from its arrival at the
+                              micro-batcher to its dispatch's start
+                              (null without --microbatch)
     POST /infer            -> body: .npy of (B, 256, 256, 3) float32
                               (normalized image crops, NHWC);
                               response: .npz with the final refinement
@@ -93,6 +97,10 @@ class MicroBatcher:
     (BN uses running stats; attention is over each sample's own 42
     joint tokens — no cross-batch mixing).
 
+    :meth:`submit_timed` also returns the request's queue wait: seconds
+    from its arrival to the start of its dispatch (the device lock
+    taken), which the server adds up for ``/stats``.
+
     ``buckets``: sorted batch sizes to zero-pad a coalesced batch up to
     (pad rows sliced away before responding). cuDNN picks its algorithms
     per distinct size on the first call; padding to the warmed sizes keeps
@@ -125,6 +133,13 @@ class MicroBatcher:
         self._thread.join(timeout=10)
 
     def submit(self, img: np.ndarray) -> dict:
+        return self.submit_timed(img)[0]
+
+    def submit_timed(self, img: np.ndarray) -> tuple[dict, float]:
+        """:meth:`submit`, and the request's seconds from here to the
+        start of its dispatch (its last, where a failed group was retried
+        one request at a time)."""
+        t0 = time.perf_counter()
         slot = {"event": threading.Event(), "out": None, "err": None}
         with self._stop_lock:
             if self._stopped:
@@ -133,7 +148,7 @@ class MicroBatcher:
         slot["event"].wait()
         if slot["err"] is not None:
             raise slot["err"]
-        return slot["out"]
+        return slot["out"], slot["t_dispatch"] - t0
 
     def _collect(self):
         """Block for the first request, then gather more until the
@@ -160,7 +175,14 @@ class MicroBatcher:
             total += nxt[0].shape[0]
         return group
 
-    def _dispatch_single(self, img: np.ndarray) -> dict:
+    @staticmethod
+    def _dispatched(slots) -> None:
+        """Stamp a dispatch's start on its requests."""
+        now = time.perf_counter()
+        for slot in slots:
+            slot["t_dispatch"] = now
+
+    def _dispatch_single(self, img: np.ndarray, slot) -> dict:
         # Pad to a warmed bucket just like the group path: a raw-size
         # dispatch would pay a first call at a fresh size while the
         # batcher thread, and every queued request, waits.
@@ -171,6 +193,7 @@ class MicroBatcher:
                 [img, np.zeros((pad_to - n_real,) + img.shape[1:],
                                img.dtype)])
         with self.lock:
+            self._dispatched([slot])
             out = self.infer(img)
             resp = {k: _numpy(v)[:n_real] for k, v in
                     _final_outputs(out, self.full).items()}
@@ -199,6 +222,7 @@ class MicroBatcher:
                          np.zeros((pad_to - n_real,) + batch.shape[1:],
                                   batch.dtype)])
                 with self.lock:
+                    self._dispatched([g[1] for g in group])
                     out = self.infer(batch)
                     resp = {k: _numpy(v) for k, v in
                             _final_outputs(out, self.full).items()}
@@ -210,7 +234,7 @@ class MicroBatcher:
                 # doesn't poison its neighbors — only IT gets the 400.
                 for img, slot in group:
                     try:
-                        slot["out"] = self._dispatch_single(img)
+                        slot["out"] = self._dispatch_single(img, slot)
                     except Exception as e:  # noqa: BLE001 — per-request
                         slot["err"] = e
                     slot["event"].set()
@@ -246,6 +270,10 @@ def make_handler(infer, lock, stats, full: bool, batcher=None,
                 s["avg_latency_ms"] = (
                     round(1e3 * s.pop("lat_sum") / s["requests"], 2)
                     if s["requests"] else None)
+                wait = s.pop("queue_wait_sum", 0.0)
+                s["avg_queue_wait_ms"] = (
+                    round(1e3 * wait / s["requests"], 2)
+                    if s["requests"] and batcher is not None else None)
                 s["avg_batch"] = (
                     round(s["images"] / s["dispatches"], 2)
                     if s["dispatches"] else None)
@@ -272,10 +300,13 @@ def make_handler(infer, lock, stats, full: bool, batcher=None,
                                      f"{img.shape}")
                 t0 = time.perf_counter()
                 if batcher is not None:
-                    resp = batcher.submit(img.astype(np.float32))
+                    resp, wait = batcher.submit_timed(
+                        img.astype(np.float32))
                     with lock:
                         stats["requests"] += 1
                         stats["lat_sum"] += time.perf_counter() - t0
+                        stats["queue_wait_sum"] = stats.get(
+                            "queue_wait_sum", 0.0) + wait
                 else:
                     with lock:  # one device; serialize dispatch
                         out = infer(img.astype(np.float32))
@@ -310,7 +341,8 @@ def make_server(artifact, host: str = "127.0.0.1", port: int = 8000,
 
     infer = serve.load(artifact) if isinstance(artifact, str) else artifact
     lock = threading.Lock()
-    stats = {"requests": 0, "images": 0, "dispatches": 0, "lat_sum": 0.0}
+    stats = {"requests": 0, "images": 0, "dispatches": 0, "lat_sum": 0.0,
+             "queue_wait_sum": 0.0}
     batcher = (MicroBatcher(infer, lock, stats, full, max_batch,
                             window_ms, buckets)
                if max_batch > 0 else None)

@@ -80,9 +80,8 @@ projection, the splat fusion conv, ``enhance_layer3``). The port's eager
 forward computes all of it, as serving does; the timed call runs the
 full forward. On the card the script prints, on earlier ``bench:`` lines,
 the device's busy share over one more call traced with ``torch.profiler``
-(kernel launches, busy and wall milliseconds), the device time of the
-modules that XLA drops, measured in the same trace, and the host syncs of
-one eval call and one train call (``torch.cuda.set_sync_debug_mode``).
+(kernel launches, busy and wall milliseconds) and the host syncs of one
+eval call and one train call (``torch.cuda.set_sync_debug_mode``).
 None of this is timed.
 
 ``BENCH_LOCK``, ``BENCH_PROBE_CMD``, ``BENCH_WAIT_SECS`` and
@@ -222,79 +221,39 @@ def bench_eval(quant=None, quant_static=None, fused=None,
     check_finite([t for triple in out for t in triple], "eval")
     if dev.type == "cuda":
         what = f"eval quant={quant} static={int(quant_static)}"
-        trace_eval_call(call, images, model, unroll, what)
+        trace_eval_call(call, images, unroll, what)
         sync_report(lambda: call(images), dev, what)
     return BATCH * unroll * ITERS / dt
 
 
-class _Range:
-    """A ``torch.profiler.record_function`` range opened by one module's
-    forward hook and closed by another's."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.open = None
-
-    def start(self, *_):
-        self.open = torch.profiler.record_function(self.name)
-        self.open.__enter__()
-
-    def stop(self, *_):
-        if self.open is not None:
-            self.open.__exit__(None, None, None)
-            self.open = None
-
-
-# The range of the work XLA drops from bench.py's program: from the end of
-# the last refinement stage's regressor (its MANO) to the end of the
-# decoder (projection, splat fusion conv, enhance_layer3, the final convs,
-# the seg and dense heads).
-DROPPED = "bench.dropped_by_xla"
-
-
-def trace_eval_call(call, images, model, unroll: int, what: str) -> dict:
+def trace_eval_call(call, images, unroll: int, what: str) -> dict:
     """One more eval call traced with ``torch.profiler``: prints (and
-    returns) the device's busy share over the call, its kernel launches,
-    and the device time of the work XLA drops from ``bench.py``'s
-    program, per forward."""
+    returns) the device's busy share over the call and its kernel
+    launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from dir_tpu_torch.profile_serve import busy_us
+    from dir_tpu_torch.utils.profiling import device_events
 
-    dropped = _Range(DROPPED)
-    hooks = [model.decoder.projecter_3.regressor.register_forward_hook(
-        dropped.start), model.decoder.register_forward_hook(dropped.stop)]
     dev = images.device
-    try:
+    synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        call(images)
         synchronize(dev)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            call(images)
-            synchronize(dev)
-            wall_us = (time.perf_counter() - t) * 1e6
-    finally:
-        for h in hooks:
-            h.remove()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        wall_us = (time.perf_counter() - t) * 1e6
+    kernels = device_events(prof)
     busy = busy_us(kernels)
-    # the range's own event on the host: the device time of the kernels its
-    # operations launched (not the range's span on the device's timeline)
-    dropped_us = sum(e.device_time_total for e in prof.events()
-                     if e.name == DROPPED
-                     and e.device_type == torch.autograd.DeviceType.CPU)
     rec = {"what": what, "forwards": unroll, "wall_ms": wall_us / 1e3,
            "device_busy_ms": busy / 1e3, "device_busy_share": busy / wall_us,
            "kernel_launches": len(kernels),
-           "dropped_by_xla_ms_per_forward": dropped_us / 1e3 / unroll,
            "device_busy_ms_per_forward": busy / 1e3 / unroll}
     say(f"{what}: one traced call of {unroll} forwards: wall "
         f"{rec['wall_ms']:.3f} ms, device busy {rec['device_busy_ms']:.3f} "
         f"ms (share {rec['device_busy_share']:.4f}), {len(kernels)} kernel "
-        f"launches; work XLA drops from bench.py's program "
-        f"{rec['dropped_by_xla_ms_per_forward']:.3f} ms of "
-        f"{rec['device_busy_ms_per_forward']:.3f} ms device time a forward")
+        f"launches, {rec['device_busy_ms_per_forward']:.3f} ms device time "
+        f"a forward")
     return rec
 
 

@@ -31,6 +31,7 @@ from dir_tpu_torch.ops.projection import ortho_project
 from dir_tpu_torch.ops.quant import ActAmax, module_quant_conv
 from dir_tpu_torch.ops.sampling import grid_sample_nhwc_mm
 from dir_tpu_torch.ops.splat_conv import fused_splat_conv
+from dir_tpu_torch.utils.profiling import span
 
 
 def _head32(x: torch.Tensor) -> torch.Tensor:
@@ -282,27 +283,32 @@ class Decoder(nn.Module):
         outputs = []
 
         # stage 1 at c3's resolution (16x16 at 256^2 input)
-        c4_up = _nchw(upsample2x(_nhwc(c4)))
-        fusion = self.fusion_layer4(c4_up, pair=self.skip_layer4(c3))
-        result, stage_feats = self.projecter_4(fusion, init_out, pair)
-        enhance = self.enhance_layer4(fusion, pair=stage_feats["img_feat"])
-        outputs.append(result)
+        with span("model.stage1"):
+            c4_up = _nchw(upsample2x(_nhwc(c4)))
+            fusion = self.fusion_layer4(c4_up, pair=self.skip_layer4(c3))
+            result, stage_feats = self.projecter_4(fusion, init_out, pair)
+            enhance = self.enhance_layer4(fusion,
+                                          pair=stage_feats["img_feat"])
+            outputs.append(result)
 
         # stage 2 at c2's resolution (32x32)
-        c3_up = _nchw(upsample2x(_nhwc(enhance)))
-        fusion = self.fusion_layer3(c3_up, pair=self.skip_layer3(c2))
-        result, stage_feats = self.projecter_3(fusion, result, pair,
-                                               want_vis)
-        enhance = self.enhance_layer3(fusion, pair=stage_feats["img_feat"])
-        outputs.append(result)
+        with span("model.stage2"):
+            c3_up = _nchw(upsample2x(_nhwc(enhance)))
+            fusion = self.fusion_layer3(c3_up, pair=self.skip_layer3(c2))
+            result, stage_feats = self.projecter_3(fusion, result, pair,
+                                                   want_vis)
+            enhance = self.enhance_layer3(fusion,
+                                          pair=stage_feats["img_feat"])
+            outputs.append(result)
 
-        x = self.conv_final(enhance)
-        return {
-            "result_list": outputs,
-            "seg": _nhwc(_head32(self.seg(x))),
-            "dense": _nhwc(_head32(self.dense(x))),
-            "proj_feat": stage_feats.get("vis_img_feat"),
-        }
+        with span("model.heads"):
+            x = self.conv_final(enhance)
+            return {
+                "result_list": outputs,
+                "seg": _nhwc(_head32(self.seg(x))),
+                "dense": _nhwc(_head32(self.dense(x))),
+                "proj_feat": stage_feats.get("vis_img_feat"),
+            }
 
 
 class DIR(nn.Module):
@@ -333,8 +339,10 @@ class DIR(nn.Module):
     def forward(self, img: torch.Tensor, mano_left: ManoModel,
                 mano_right: ManoModel, want_vis: bool = False) -> dict:
         pair = stack_mano_pair(mano_left, mano_right)
-        feats = self.backbone(_nchw(img))
-        init_out = self.init_regressor(feats[-1], pair)
+        with span("model.backbone"):
+            feats = self.backbone(_nchw(img))
+        with span("model.init_regressor"):
+            init_out = self.init_regressor(feats[-1], pair)
         decode = self.decoder(feats, init_out, pair, want_vis)
         out = {
             "stages": [init_out] + decode["result_list"],

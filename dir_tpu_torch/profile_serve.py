@@ -9,7 +9,10 @@ one request at each of batch 1, 8 and 64 (``--batches``; 256 is
 ``tools/profile_eval.py``'s and ``bench.py``'s batch) with
 ``torch.profiler`` and prints, per batch, one JSON line: the request's
 wall time, the device's busy time and idle share over it, the number of
-kernel launches, and the 15 kernels that take the most device time; the
+kernel launches, the 15 kernels that take the most device time, and the
+host time inside each of the program's spans (``host_ms_by_span``: the
+serving call's upload and forward and the model's modules, or the train
+step's phases; ``utils/profiling.py``, the profiler's cost included); the
 card's name and power limit come first. ``--config T`` traces one AdamW
 step of configuration T instead (B's decoder flags, so K5 runs in the
 forward; bench.py:bench_train's seeded batch of 64) and adds the step's
@@ -33,6 +36,7 @@ from dir_tpu_torch.bench import card
 from dir_tpu_torch.serve import (CONFIG_B, CONFIG_C, build_flagship,
                                  calibrate_static_scales, condition_random_,
                                  make_infer)
+from dir_tpu_torch.utils.profiling import device_events, host_ms
 
 BATCHES = "1,8,64"
 TOP = 15
@@ -90,8 +94,7 @@ def profile_request(infer, img) -> dict:
         infer(img)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(prof)
     busy = busy_us(kernels)
     by_name: dict = {}
     for e in kernels:
@@ -106,6 +109,7 @@ def profile_request(infer, img) -> dict:
         "kernel_launches": len(kernels),
         "top_kernels": [{"name": name[:90], "calls": n, "ms": us / 1e3}
                         for name, (n, us) in ranked],
+        "host_ms_by_span": host_ms(prof),
     }
 
 

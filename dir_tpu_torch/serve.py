@@ -16,6 +16,7 @@ you serve on, with the torch version you serve with.
 from __future__ import annotations
 
 import io
+import itertools
 from typing import Callable, Optional
 
 import numpy as np
@@ -27,6 +28,7 @@ from dir_tpu_torch.device import no_tf32, resolve_device
 from dir_tpu_torch.mano.assets import (ManoModel, fix_left_shapedirs,
                                        load_mano_pair, synthetic_mano)
 from dir_tpu_torch.ops import quant
+from dir_tpu_torch.utils.profiling import span
 from dir_tpu_torch.weights import random_init_  # noqa: F401 (re-export)
 
 # The keyword arguments of :func:`build_flagship` that select configuration B.
@@ -157,12 +159,17 @@ def make_infer(model: DIR, mano_left: ManoModel, mano_right: ManoModel):
     dev = next(model.parameters()).device
     mano_left, mano_right = mano_left.to(dev), mano_right.to(dev)
     model.eval()
+    calls = itertools.count()
 
     def infer(img) -> dict:
-        if isinstance(img, np.ndarray):
-            img = torch.from_numpy(img)
-        with torch.inference_mode(), no_tf32():
-            return model(img.to(dev, torch.float32), mano_left, mano_right)
+        with span("serve.infer", unit=next(calls)):
+            if isinstance(img, np.ndarray):
+                img = torch.from_numpy(img)
+            with torch.inference_mode(), no_tf32():
+                with span("serve.upload"):
+                    x = img.to(dev, torch.float32)
+                with span("serve.forward"):
+                    return model(x, mano_left, mano_right)
 
     return infer
 

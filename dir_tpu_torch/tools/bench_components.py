@@ -183,6 +183,7 @@ def trace(fn, args, dev: torch.device) -> dict:
 
     from dir_tpu_torch.ops.bone_splat import bone_splat
     from dir_tpu_torch.profile_serve import busy_us
+    from dir_tpu_torch.utils.profiling import device_events
 
     before = bone_splat.launches
     with profile(activities=[ProfilerActivity.CPU,
@@ -190,8 +191,7 @@ def trace(fn, args, dev: torch.device) -> dict:
         fn(*args)
         synchronize(dev)
     k5 = bone_splat.launches - before
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(prof)
     return {"device_ms": busy_us(kernels) / 1e3, "launches": len(kernels),
             "k5": k5}
 

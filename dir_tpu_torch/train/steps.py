@@ -40,6 +40,7 @@ from dir_tpu_torch.mano.assets import ManoModel
 from dir_tpu_torch.models.losses import dir_losses, total_loss
 from dir_tpu_torch.parallel.mesh import Mesh, average_gradients, replicate
 from dir_tpu_torch.train.state import TrainState
+from dir_tpu_torch.utils.profiling import span
 
 # ImageNet normalization of the data pipeline (RGB order), as
 # dir_tpu/data/augment.py has it.
@@ -116,23 +117,38 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     mano_left, mano_right = mano_left.to(dev), mano_right.to(dev)
     schedule = getattr(optimizer, "lr_schedule", None)
 
-    def loss_for(batch: dict):
-        batch = decode_wire8(batch)
-        out = model(batch["img"], mano_left, mano_right)
-        loss_dict = dir_losses(out, batch, cfg, mano_left.faces,
-                               mano_right.faces, fused_stages=True,
-                               mesh=mesh)
-        return total_loss(loss_dict), loss_dict
+    def zero_grad():
+        with span("train.optimizer"):
+            optimizer.zero_grad(set_to_none=True)
 
-    def update(state: TrainState) -> TrainState:
-        average_gradients(model.parameters(), mesh)
-        if schedule is not None:
-            lr = schedule(state.step)
-            for group in optimizer.param_groups:
-                group["lr"] = lr
-        optimizer.step()
-        state.step += 1
-        return state
+    def loss_for(batch: dict):
+        with span("train.forward"):
+            batch = decode_wire8(batch)
+            out = model(batch["img"], mano_left, mano_right)
+        with span("train.loss"):
+            loss_dict = dir_losses(out, batch, cfg, mano_left.faces,
+                                   mano_right.faces, fused_stages=True,
+                                   mesh=mesh)
+            return total_loss(loss_dict), loss_dict
+
+    def backward(loss: torch.Tensor):
+        with span("train.backward"):
+            loss.backward()
+
+    def update(state: TrainState, grad_div: int = 1) -> TrainState:
+        with span("train.optimizer"):
+            if grad_div > 1:
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(grad_div)
+            average_gradients(model.parameters(), mesh)
+            if schedule is not None:
+                lr = schedule(state.step)
+                for group in optimizer.param_groups:
+                    group["lr"] = lr
+            optimizer.step()
+            state.step += 1
+            return state
 
     def global_dict(loss_dict: dict) -> dict:
         """The detached loss dict; under a mesh, the global batch's."""
@@ -140,38 +156,37 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
         return loss_dict if mesh is None else mesh.mean_dict(loss_dict)
 
     def one_step(state: TrainState, batch: dict):
-        optimizer.zero_grad(set_to_none=True)
+        zero_grad()
         loss, loss_dict = loss_for(batch)
-        loss.backward()
+        backward(loss)
         return update(state), global_dict(loss_dict)
 
     def accum_step(state: TrainState, batches: dict):
-        optimizer.zero_grad(set_to_none=True)
+        zero_grad()
         sums = None
         for i in range(grad_accum):
             loss, loss_dict = loss_for({k: v[i] for k, v in batches.items()})
-            loss.backward()
+            backward(loss)
             loss_dict = {k: v.detach() for k, v in loss_dict.items()}
             sums = loss_dict if sums is None else {
                 k: sums[k] + v for k, v in loss_dict.items()}
-        for p in model.parameters():
-            if p.grad is not None:
-                p.grad.div_(grad_accum)
-        return update(state), global_dict(
+        return update(state, grad_accum), global_dict(
             {k: v / grad_accum for k, v in sums.items()})
 
     def step(state: TrainState, batch: dict):
-        batch = _to_device(batch, dev)
-        model.train()
-        with no_tf32(), deterministic():
-            if grad_accum > 1:
-                return accum_step(state, batch)
-            if unroll == 1:
-                return one_step(state, batch)
-            for i in range(unroll):
-                state, loss_dict = one_step(
-                    state, {k: v[i] for k, v in batch.items()})
-            return state, loss_dict
+        with span("train.step", unit=state.step):
+            with span("train.upload"):
+                batch = _to_device(batch, dev)
+            model.train()
+            with no_tf32(), deterministic():
+                if grad_accum > 1:
+                    return accum_step(state, batch)
+                if unroll == 1:
+                    return one_step(state, batch)
+                for i in range(unroll):
+                    state, loss_dict = one_step(
+                        state, {k: v[i] for k, v in batch.items()})
+                return state, loss_dict
 
     return step
 

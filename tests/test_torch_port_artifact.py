@@ -365,6 +365,9 @@ def test_http_server_roundtrip(exported_b):
         stats = json.loads(urllib.request.urlopen(f"{base}/stats").read())
         assert stats["requests"] == 1 and stats["images"] == 2
         assert stats["avg_latency_ms"] > 0 and stats["avg_batch"] == 2
+        # no micro-batcher, no queue of its own
+        assert stats["avg_queue_wait_ms"] is None
+        assert "queue_wait_sum" not in stats
         with pytest.raises(urllib.error.HTTPError) as err:
             urllib.request.urlopen(f"{base}/infer", b"garbage")
         assert err.value.code == 400 and "error" in json.loads(
@@ -414,6 +417,9 @@ def test_http_microbatching(exported_b):
         stats = json.loads(urllib.request.urlopen(f"{base}/stats").read())
         assert stats["requests"] == 4 and stats["images"] == 4
         assert stats["dispatches"] < 4 and stats["avg_batch"] > 1
+        # a request waits in the batcher's queue until its dispatch, at
+        # most the 2 s window and the dispatch before it
+        assert 0 < stats["avg_queue_wait_ms"] < stats["avg_latency_ms"]
     finally:
         srv.batcher.stop()
         srv.shutdown()
