@@ -1929,7 +1929,8 @@ def dp_steps(mods, state_dict, batches, mesh=None, snapshot_at=None):
         out["launches"].append(tuple(a - b for a, b in zip(
             kernel_counts(mods), before)))
         out["losses"].append({k: float(v) for k, v in loss.items()})
-        out["lr"].append(opt.param_groups[0]["lr"])
+        # a float: the one-device step keeps each lr as a device tensor
+        out["lr"].append(float(opt.param_groups[0]["lr"]))
         if i + 1 == snapshot_at:
             out["snapshot"] = {k: v.detach().cpu().clone()
                                for k, v in model.state_dict().items()}

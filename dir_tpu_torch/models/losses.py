@@ -39,9 +39,10 @@ def smooth_l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """``v / max(||v||, eps)``, clamped inside the sqrt: clamping after it
-    gives a 0 * inf = NaN gradient on exactly degenerate rows."""
+    gives a 0 * inf = NaN gradient on exactly degenerate rows. The bound is
+    a Python scalar, so no host value is copied to the device."""
     sq = torch.sum(v * v, dim=-1, keepdim=True)
-    return v / torch.sqrt(torch.maximum(sq, sq.new_tensor(eps * eps)))
+    return v / torch.sqrt(torch.clamp_min(sq, eps * eps))
 
 
 def _face_edges(coord: torch.Tensor, faces):

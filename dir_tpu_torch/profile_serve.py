@@ -16,7 +16,9 @@ step's phases; ``utils/profiling.py``, the profiler's cost included); the
 card's name and power limit come first. ``--config T`` traces one AdamW
 step of configuration T instead (B's decoder flags, so K5 runs in the
 forward; bench.py:bench_train's seeded batch of 64) and adds the step's
-peak memory. Run from the repository root on a machine with a CUDA device:
+peak memory; the traced step is a replay of the step's CUDA graph (its
+warm-up calls ran eager, then captured), so its host time by span is
+``train.upload`` and ``train.replay``, not the eager phases. Run from the repository root on a machine with a CUDA device:
 
     python -m dir_tpu_torch.profile_serve [--config {A,B,C,T}] \
         [--batches 1,8,64]
@@ -66,7 +68,8 @@ def train_batch(b: int, seed: int = 0, device="cuda") -> dict:
 
 def profile_train_step(batch: int = 64) -> dict:
     """One traced AdamW step of configuration T (weights conditioned as
-    chip_smoke.py's) after three warm-up steps on the same batch."""
+    chip_smoke.py's) after three warm-up steps on the same batch: eager,
+    capture and replay, replay; the traced step replays the graph."""
     from dir_tpu_torch.config import TrainConfig
     from dir_tpu_torch.train.state import create_train_state, make_optimizer
     from dir_tpu_torch.train.steps import make_train_step

@@ -32,6 +32,23 @@ def model_state_dict(model: torch.nn.Module) -> dict:
             if not k.endswith("num_batches_tracked")}
 
 
+def optimizer_state_dict(optimizer: torch.optim.Optimizer) -> dict:
+    """The optimizer's ``state_dict`` with each group as an eager step
+    keeps it: a float lr and ``capturable`` off. The CUDA-graph train step
+    makes them a device tensor and on; written so, a checkpoint restores on
+    any device and through any path."""
+    sd = optimizer.state_dict()
+    groups = []
+    for group in sd["param_groups"]:
+        group = dict(group)
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"] = float(group["lr"])
+        if "capturable" in group:
+            group["capturable"] = False
+        groups.append(group)
+    return dict(sd, param_groups=groups)
+
+
 def save_checkpoint(ckpt_dir: str, state: TrainState,
                     name: str = "latest", mesh: Mesh | None = None) -> str:
     """Write ``state`` to ``<ckpt_dir>/<name>.pt`` (through a temporary file,
@@ -42,7 +59,7 @@ def save_checkpoint(ckpt_dir: str, state: TrainState,
         os.makedirs(ckpt_dir, exist_ok=True)
         tmp = path + ".tmp"
         torch.save({"model": model_state_dict(state.model),
-                    "optimizer": state.optimizer.state_dict(),
+                    "optimizer": optimizer_state_dict(state.optimizer),
                     "step": int(state.step)}, tmp)
         os.replace(tmp, path)
     if mesh is not None:
