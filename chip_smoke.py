@@ -22,7 +22,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      with the whole wrapper beside), the plain version and, for the
      bottlenecks, the unfused library block (cuDNN for the bf16 kernels, the
      port's own unfused int8 block for K3: yardsticks the fused routes never
-     call);
+     call); then the fused eval sites' pass (``bias_add_relu_kernel``,
+     Triton, ops/conv_epilogue.py) against its plain version at A's stem,
+     layer1_0 conv3 (with the residual) and layer3 conv1 shapes at batch
+     1,024, to the bit, timed beside the plain version and its byte bound;
   3b. the reference: the port on the card against dir_tpu's own outputs
      on the same full-size weights and inputs, recorded on the CPU
      (tests/data/torch_port_reference.npz, written by
@@ -46,7 +49,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      splat through K5) and in configuration C (int8 static serving,
      calibrated on a seeded batch: K3 at layer1 and layer2, no other
      kernel, each block's K3 operands made once over the three requests);
-     check every output and each kernel's launches per request,
+     check every output and each kernel's launches per request (and the
+     fused eval sites' pass's: 60 in A, 51 in B, 0 in C),
      hold the kernels against their plain versions on what the path fed
      them at batch 64, compare each final stage with the port's fp32 forward
      on the card (also through the port's batch_metrics), and time the
@@ -143,11 +147,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
      path: the reference phase's runs, A, B and C served, the B and C artifacts
      over HTTP, T, F2's runs, the Trainer and the data-parallel runs of 6b,
      over their ranks, the bench's eval call and, for K5, the component
-     tool's traced calls), then the one-line result.
+     tool's traced calls; for ``bias_add_relu_kernel`` A's, B's and C's
+     requests), then the one-line result.
 """
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -226,6 +232,18 @@ EXPECTED = {"A": (2, 0, 0, 0, 0), "B": (2, 3, 0, 0, 4), "C": (0, 0, 5, 0, 0),
             "T": (0, 0, 0, 0, 4)}
 # ... per in-loop eval batch of the Trainer (its steps launch T's)
 EXPECTED_TRAINER_EVAL = (2, 3, 0, 0, 4)
+# The eval forward's fused sites (ops/conv_epilogue.py): the pass after the
+# folded conv, bias_add_relu_kernel, at A's shapes at batch 1,024, bf16
+# channels-last: (site, conv output (B, C, H, W), with a residual z) of the
+# stem, layer1_0's conv3 (z its projection) and a layer3 block's conv1
+EPILOGUE_SHAPES = (("stem", (1024, 64, 128, 128), False),
+                   ("l1_0.c3", (1024, 256, 64, 64), True),
+                   ("l3_x.c1", (1024, 256, 16, 16), False))
+# fused calls a request (conv_bias_relu.fused_runs; one launch of the pass
+# each) in A, B and C: the stem, 3 in each block that neither K1 nor K2
+# takes (14 in A, 11 in B), 2 in each of the decoder's 6 Residuals, 1 in
+# each of its 5 ConvHeads; C's int8 paths take none
+EXPECTED_EPILOGUE = {"A": 60, "B": 51, "C": 0}
 # Configuration T: bench.py:bench_train's batch; warm-up and timed steps on
 # the repeated batch; steps of the default decoder
 TRAIN_BATCH = 64
@@ -414,6 +432,19 @@ def say(msg: str) -> None:
 
 
 T0 = time.monotonic()
+
+
+@contextlib.contextmanager
+def traced_ops():
+    """The live model on the ops an exported artifact holds: the fused eval
+    route of ``ops/conv_epilogue.py`` off, as it is while exporting."""
+    from dir_tpu_torch.ops import conv_epilogue
+    engages = conv_epilogue.engages
+    conv_epilogue.engages = lambda module, x: False
+    try:
+        yield
+    finally:
+        conv_epilogue.engages = engages
 
 
 def time_cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -774,6 +805,55 @@ def splat_phase(bs):
     return results
 
 
+def epilogue_phase(ce):
+    """The fused eval sites' pass (``bias_add_relu_kernel``) against its
+    plain version at EPILOGUE_SHAPES: equal to the bit (both sum in fp32
+    and round once), then timed in place on the conv output's buffer,
+    beside the plain version and the byte bound. It replaces the eval BN,
+    the add and the ReLU, which no single library call computes, so there
+    is no library time."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    cl = torch.channels_last
+
+    def draw(shape):
+        return torch.randn(shape, generator=g, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=cl)
+
+    results = {}
+    for site, shape, has_z in EPILOGUE_SHAPES:
+        y = draw(shape)
+        z = draw(shape) if has_z else None
+        bias = torch.randn(shape[1], generator=g, device=dev)
+        want = ce.bias_add_relu_plain(y, bias, z)
+        got = ce.bias_add_relu_(y.clone(), bias, z)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise RuntimeError(
+                f"bias_add_relu_kernel at {site} {shape}: "
+                f"{int((got != want).sum())} elements differ from the "
+                "plain version")
+        del got, want
+        buf = y.clone()
+        ms = time_cuda_ms(lambda: ce.bias_add_relu_(buf, bias, z), 20)
+        plain_ms = time_cuda_ms(
+            lambda: ce.bias_add_relu_plain(y, bias, z), 5)
+        n = y.numel()
+        # y read and written, z read, in bf16; the bias once
+        nbytes = 2 * n * (3 if has_z else 2) + 4 * shape[1]
+        results[site] = {
+            "shape": list(shape), "z": has_z, "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            **bound(nbytes, n * (3 if has_z else 2), PEAK_FP32_FLOP_PER_S),
+        }
+        say(f"bias_add_relu_kernel {site} {shape}{' + z' if has_z else ''}:"
+            f" equal to the plain version; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {results[site]['bound_ms']:.4f} ms "
+            f"({results[site]['bound_by']})")
+        del y, z, buf
+    return results
+
+
 def check_outputs(out: dict, b: int) -> None:
     """Shapes and finiteness of every output of one request."""
     want = {"joint_xyz": (b, 21, 3), "mesh_xyz": (b, 778, 3),
@@ -815,28 +895,46 @@ def reset_counts(mods) -> None:
     bs.bone_splat.launches = 0
 
 
+def epilogue_counts() -> tuple:
+    """Fused eval sites run and ``bias_add_relu_kernel`` launches so far."""
+    from dir_tpu_torch.ops import conv_epilogue as ce
+    return ce.conv_bias_relu.fused_runs, ce.bias_add_relu_.launches
+
+
 def drive(mods, name: str, infer, images: dict):
-    """The main path in configuration ``name``: the kernels' counts set to
-    0, one request per batch size, the counts read; every output and the
-    launches per request checked. Returns the outputs and the counts."""
+    """The main path in configuration ``name``: the kernels' counts and the
+    fused eval sites' (:func:`epilogue_counts`) set to 0, one request per
+    batch size, the counts read; every output and the launches per request
+    checked. Returns the outputs, the kernels' counts and the fused sites'
+    pass's launches."""
+    from dir_tpu_torch.ops import conv_epilogue as ce
     reset_counts(mods)
-    outputs, per_request = {}, {}
+    ce.conv_bias_relu.fused_runs = ce.bias_add_relu_.launches = 0
+    outputs, per_request, fused = {}, {}, {}
     for b in BATCHES:
-        before = kernel_counts(mods)
+        before, fused_before = kernel_counts(mods), epilogue_counts()
         outputs[b] = infer(images[b])
         torch.cuda.synchronize()
         per_request[b] = tuple(
             n - m for n, m in zip(kernel_counts(mods), before))
+        fused[b] = tuple(
+            n - m for n, m in zip(epilogue_counts(), fused_before))
     launches = kernel_counts(mods)
     say(f"main path, configuration {name}: launches per request of "
-        f"{KERNELS} {per_request}, total {launches}")
+        f"{KERNELS} {per_request}, total {launches}; fused eval sites and "
+        f"bias_add_relu_kernel launches per request {fused}")
     for b in BATCHES:
         check_outputs(outputs[b], b)
         if per_request[b] != EXPECTED[name]:
             raise RuntimeError(
                 f"configuration {name}, batch {b}: {KERNELS} ran "
                 f"{per_request[b]} times, expected {EXPECTED[name]}")
-    return outputs, launches
+        if fused[b] != (EXPECTED_EPILOGUE[name],) * 2:
+            raise RuntimeError(
+                f"configuration {name}, batch {b}: {fused[b][0]} fused eval "
+                f"sites and {fused[b][1]} launches of bias_add_relu_kernel, "
+                f"expected {EXPECTED_EPILOGUE[name]} of each")
+    return outputs, launches, epilogue_counts()[1]
 
 
 def t_breaches(errs: dict) -> list:
@@ -1070,11 +1168,13 @@ def serve_phase(mods):
         splats.append((uv, feat, size, distance))
         return bs.bone_splat(uv, feat, size, distance)
 
-    outputs, launches = {}, {}
-    outputs["A"], launches["A"] = drive(mods, "A", infers["A"], images)
+    outputs, launches, fused = {}, {}, {}
+    outputs["A"], launches["A"], fused["A"] = drive(mods, "A", infers["A"],
+                                                    images)
     dir_module.bone_splat = recording_splat
     try:
-        outputs["B"], launches["B"] = drive(mods, "B", infers["B"], images)
+        outputs["B"], launches["B"], fused["B"] = drive(
+            mods, "B", infers["B"], images)
     finally:
         dir_module.bone_splat = bs.bone_splat
     # each K3 block makes its operands on its first request and keeps them
@@ -1083,7 +1183,8 @@ def serve_phase(mods):
     resnet_module.kernel_operands = (
         lambda *a, **k: made.append(1) or real_operands(*a, **k))
     try:
-        outputs["C"], launches["C"] = drive(mods, "C", infers["C"], images)
+        outputs["C"], launches["C"], fused["C"] = drive(
+            mods, "C", infers["C"], images)
     finally:
         resnet_module.kernel_operands = real_operands
     say(f"configuration C: K3 operands made {len(made)} times over "
@@ -1217,7 +1318,7 @@ def serve_phase(mods):
                 f"({b / latency[name][b] * 1e3:.1f} img/s at the median)")
     live = {"models": models, "infers": infers, "images": images,
             "mano": (mano_l, mano_r)}
-    return launches, served_err, worst, latency, metrics, live
+    return launches, fused, served_err, worst, latency, metrics, live
 
 
 def batch_loss(model, batch, mano_l, mano_r) -> float:
@@ -2489,9 +2590,10 @@ def http_session(mods, path: str, name: str, live_infer, images: dict,
     """Serve the artifact at ``path`` through ``apps/serve_http.py``'s
     server on a free local port, with its micro-batcher; POST batch 1, batch
     8 and 8 concurrent batch-1 requests (repeated for latency); hold every
-    response against ``live_infer`` on the same images and every dispatch's
-    kernel launches against configuration ``name``'s. Returns the record,
-    with the launches of the whole session."""
+    response against ``live_infer`` on the same images (on the ops the
+    artifact holds: :func:`traced_ops`) and every dispatch's kernel
+    launches against configuration ``name``'s. Returns the record, with the
+    launches of the whole session."""
     import threading
 
     from dir_tpu_torch.apps import serve_http
@@ -2510,7 +2612,7 @@ def http_session(mods, path: str, name: str, live_infer, images: dict,
     record = {"load_s": load_s, "warmup_s": warm_s, "err_mm": 0.0,
               "err_maps": 0.0, "latency_ms": {}, "per_dispatch": {}}
     try:
-        with torch.inference_mode():
+        with torch.inference_mode(), traced_ops():
             ref = {b: live_infer(images[b]) for b in (1, 8)}
             # a single-flight server answers each of a burst's requests
             # alone: its reference is the live model on the image alone
@@ -2615,7 +2717,7 @@ def http_session(mods, path: str, name: str, live_infer, images: dict,
         record["err_by_shape"] = by_shape
         # the live model against itself across the session: cuDNN may
         # choose another algorithm for a shape as the free memory changes
-        with torch.inference_mode():
+        with torch.inference_mode(), traced_ops():
             record["live_drift"] = {
                 b: response_err(as_response(live_infer(images[b])), ref[b])
                 for b in (1, 8)}
@@ -2660,8 +2762,9 @@ def http_session(mods, path: str, name: str, live_infer, images: dict,
 def load_in_subprocess(root: str, path: str, live, images):
     """Start a fresh process that loads configuration B's artifact with no
     model code and answers one batch-1 request, against the live model's
-    answer; it prints one JSON line."""
-    with torch.inference_mode():
+    answer on the ops the artifact holds (:func:`traced_ops`); it prints
+    one JSON line."""
+    with torch.inference_mode(), traced_ops():
         want = live["infers"]["B"](images[1])["stages"][-1][
             "pd_mesh_xyz_left"].float().cpu().numpy()
     np.save(os.path.join(root, "img1.npy"), images[1])
@@ -3073,6 +3176,7 @@ def main(argv=None) -> int:
                          f"{torch.cuda.device_count()} card(s)")
     sys.path.insert(0, REPO)
     from dir_tpu_torch.ops import bone_splat as bs
+    from dir_tpu_torch.ops import conv_epilogue as ce
     from dir_tpu_torch.ops import cuda_build
     from dir_tpu_torch.ops import fused_bottleneck as fb
     from dir_tpu_torch.ops import fused_bottleneck_int8 as q8
@@ -3122,11 +3226,12 @@ def main(argv=None) -> int:
     k3 = timed("K3", int8_phase, q8, quant)
     k4 = timed("K4", stem_phase, st)
     k5 = timed("K5", splat_phase, bs)
+    epilogue = timed("epilogue", epilogue_phase, ce)
     launches = {}
     launches["reference"], reference = timed("reference", reference_phase,
                                              mods)
-    served, served_err, worst_mm, latency, metrics, live = timed(
-        "serve", serve_phase, mods)
+    served, epilogue_launches, served_err, worst_mm, latency, metrics, live = (
+        timed("serve", serve_phase, mods))
     launches.update(served)
     artifact = timed("artifact", artifact_phase, mods, live)
     for name in "BC":
@@ -3214,6 +3319,15 @@ def main(argv=None) -> int:
         entry("K5", "bone_splat", "dir_tpu_torch/csrc/bone_splat.cu",
               "dir_tpu/ops/pallas_bone_splat.py:36", k5[0],
               elsewhere={"bench_components": k5_components}, stage1=k5[1]),
+        # port-only: dir_tpu has no kernel here (XLA fuses the eval BN, the
+        # add and the ReLU into its convolutions); its launches are A's, B's
+        # and C's requests', EXPECTED_EPILOGUE a request
+        {"name": "bias_add_relu_kernel", "route": "triton",
+         "source": "dir_tpu_torch/ops/conv_epilogue.py", "replaces": None,
+         "launches": sum(epilogue_launches.values()),
+         "launches_by_configuration": epilogue_launches,
+         **{k: v for k, v in epilogue["stem"].items() if k != "z"},
+         **{site: epilogue[site] for site, _, _ in EPILOGUE_SHAPES[1:]}},
     ]}
     say(f"serve: worst final-stage err {worst_mm} mm; latency ms {latency}; "
         f"vs fp32 through batch_metrics {metrics}")

@@ -18,6 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dir_tpu_torch.models.layers import BatchNorm2d, conv2d
+from dir_tpu_torch.ops import conv_epilogue as ce
 from dir_tpu_torch.ops.fused_bottleneck import fold_bn, fused_bottleneck_infer
 from dir_tpu_torch.ops import fused_bottleneck_int8 as q8
 from dir_tpu_torch.ops.fused_bottleneck_int8 import Operands, kernel_operands
@@ -77,7 +78,9 @@ class Bottleneck(nn.Module):
             nn.Conv2d(inplanes, out, 1, stride, bias=False),
             BatchNorm2d(out)) if downsample else None)
         # K3's operands, kept with what they were made from (k3_operands)
-        self._k3_cache = None
+        self._k3_cache = ce.Kept()
+        # The folded operands of the fused eval route (_epilogue_infer)
+        self._folded = ce.Kept()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # The guard of the JAX package: not training, stride 1, >= 128
@@ -96,6 +99,8 @@ class Bottleneck(nn.Module):
             Bottleneck.fp32_unfused_runs += 1
         if self.quant_eval and not self.training:
             return self._quant_infer(x)
+        if ce.engages(self, x):
+            return self._epilogue_infer(x)
         dt = self.dtype
         out = torch.relu(self.bn1(conv2d(x, self.conv1, dt)))
         out = torch.relu(self.bn2(conv2d(out, self.conv2, dt)))
@@ -130,29 +135,45 @@ class Bottleneck(nn.Module):
                                    *self.folded_weights(), bands=bands)
         return y.permute(0, 3, 1, 2)
 
-    def _k3_sources(self) -> list:
-        """Every tensor K3's operands are made from: the convs' weights,
-        the BNs' parameters and statistics (the projection's too) and the
-        three calibrated scales."""
-        mods = [self.conv1, self.bn1, self.conv2, self.bn2, self.conv3,
-                self.bn3]
+    def _pairs(self) -> list:
+        """Each conv with the BN after it, the projection's last."""
+        pairs = [(self.conv1, self.bn1), (self.conv2, self.bn2),
+                 (self.conv3, self.bn3)]
         if self.downsample is not None:
-            mods += list(self.downsample)
-        tensors = [t for m in mods for t in (*m.parameters(recurse=False),
-                                             *m.buffers(recurse=False))
-                   if t.is_floating_point()]
-        return tensors + [getattr(self.quant_stats, n)
-                          for n in ("conv1_in", "conv2_in", "conv3_in")]
+            pairs.append(tuple(self.downsample))
+        return pairs
+
+    def _epilogue_operands(self) -> list:
+        """``[w1, b1, w2, b2, w3, b3, wd]`` for :meth:`_epilogue_infer`:
+        each BN folded into its conv (``conv_epilogue.fold``), the
+        projection's folded bias moved into ``b3``; ``wd`` None without a
+        projection."""
+        folded = [ce.fold(conv, bn, self.dtype) for conv, bn in self._pairs()]
+        (w1, b1), (w2, b2), (w3, b3) = folded[:3]
+        wd = None
+        if self.downsample is not None:
+            wd, bd = folded[3]
+            b3 = b3 + bd
+        return [w1, b1, w2, b2, w3, b3, wd]
+
+    def _epilogue_infer(self, x: torch.Tensor) -> torch.Tensor:
+        """The block at inference with each conv's BN folded in and its
+        bias, the residual and the ReLU in the pass after it:
+        ``relu(conv3'(y2) + conv_d'(x) + (b3 + bd))`` with a projection
+        (whose conv runs without a bias), ``relu(conv3'(y2) + b3 + x)``
+        without."""
+        w1, b1, w2, b2, w3, b3, wd = self._folded.get(
+            self._pairs(), self._epilogue_operands)
+        out = ce.conv_bias_relu(x, w1, b1)
+        out = ce.conv_bias_relu(out, w2, b2, self.stride, 1)
+        z = x if wd is None else F.conv2d(x, wd, None, self.stride)
+        return ce.conv_bias_relu(out, w3, b3, z=z)
 
     def k3_operands(self) -> Operands:
         """The operands of K3 for this block (``kernel_operands`` of the
-        folded weights and the calibrated scales), made once and kept. They
-        are made anew when any source tensor (:meth:`_k3_sources`) was
-        replaced, moved or changed in place (its identity, storage or
-        version), or a BN's eps changed; never while calibrating, when the
-        scales are still moving. A write through ``.data`` bypasses the
-        version, as everywhere in autograd. Inference tensors keep no
-        version, so operands made from them are not kept."""
+        folded weights and the calibrated scales), made once and kept
+        (``conv_epilogue.Kept``, with the three scales among the sources);
+        never while calibrating, when the scales are still moving."""
         if self.quant_stats.calibrating:
             raise RuntimeError("K3's operands are not made while "
                                "calibrating")
@@ -160,30 +181,22 @@ class Bottleneck(nn.Module):
             # the parameters are fake while a graph is exported: the
             # operands kept from a forward on the real ones become the
             # graph's constants
-            if self._k3_cache is None:
+            if self._k3_cache.value is None:
                 raise RuntimeError("K3's operands are made by a forward "
                                    "before the model is exported")
-            return self._k3_cache[2]
-        try:
-            key = [(t, t.data_ptr(), t._version)
-                   for t in self._k3_sources()]
-        except RuntimeError:                 # an inference tensor
-            key = None
-        key_eps = tuple(m.eps for m in self.modules()
-                        if isinstance(m, nn.BatchNorm2d))
-        cached = self._k3_cache
-        if (key is not None and cached is not None
-                and cached[1] == key_eps and len(cached[0]) == len(key)
-                and all(a is b and pa == pb and va == vb
-                        for (a, pa, va), (b, pb, vb) in zip(cached[0], key))):
-            return cached[2]
-        with torch.no_grad():
-            scales = [module_act_scale(self.quant_stats, n, None, True)
-                      for n in ("conv1_in", "conv2_in", "conv3_in")]
-            w = self.folded_weights()
-            ops = kernel_operands(*w[:6], *scales, *w[6:])
-        self._k3_cache = None if key is None else (key, key_eps, ops)
-        return ops
+            return self._k3_cache.value
+        names = ("conv1_in", "conv2_in", "conv3_in")
+
+        def make():
+            with torch.no_grad():
+                scales = [module_act_scale(self.quant_stats, n, None, True)
+                          for n in names]
+                w = self.folded_weights()
+                return kernel_operands(*w[:6], *scales, *w[6:])
+
+        return self._k3_cache.get(
+            self._pairs(), make,
+            extra=[getattr(self.quant_stats, n) for n in names])
 
     def _quant_infer(self, x: torch.Tensor) -> torch.Tensor:
         """Run the block's convs int8-quantized on the NHWC view of ``x``:
@@ -332,6 +345,8 @@ class ResNetPyramid(nn.Module):
         self.conv1 = (nn.Conv2d(3, 64, 7, 2, 3, bias=False) if stem == "conv7"
                       else nn.Conv2d(12, 64, 4, 1, 0, bias=False))
         self.bn1 = BatchNorm2d(64)
+        # The stem's folded operands (conv_epilogue's fused eval route)
+        self._folded = ce.Kept()
         inplanes = 64
         for stage, (blocks, planes) in enumerate(
                 zip(layers, (64, 128, 256, 512))):
@@ -367,7 +382,14 @@ class ResNetPyramid(nn.Module):
                 x = space_to_depth(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
                 x = F.pad(x, (2, 1, 2, 1))
             x = x.contiguous(memory_format=torch.channels_last)
-            x = torch.relu(self.bn1(conv2d(x, self.conv1, self.dtype)))
+            if ce.engages(self, x):
+                w, b = self._folded.get(
+                    [(self.conv1, self.bn1)],
+                    lambda: ce.fold(self.conv1, self.bn1, self.dtype))
+                x = ce.conv_bias_relu(x, w, b, self.conv1.stride,
+                                      self.conv1.padding)
+            else:
+                x = torch.relu(self.bn1(conv2d(x, self.conv1, self.dtype)))
         x = F.max_pool2d(x, 3, 2, 1)
         x = x.contiguous(memory_format=torch.channels_last)
         feats = []

@@ -44,11 +44,13 @@ _MAX_SMEM = 232448
 
 def fold_bn(kernel: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             mean: torch.Tensor, var: torch.Tensor, eps: float = 1e-5):
-    """Fold an inference BatchNorm into the preceding conv, in fp32:
-    BN(conv(x, W)) == conv(x, W * g) + (b - m * g), g = scale/sqrt(var+eps).
-    kernel: (..., O) (output channels last); returns fp32 (kernel, bias)."""
-    g = (scale / torch.sqrt(var + eps)).float()
-    return kernel.float() * g, bias.float() - mean.float() * g
+    """Fold an inference BatchNorm into the preceding conv, in at least
+    fp32: BN(conv(x, W)) == conv(x, W * g) + (b - m * g),
+    g = scale/sqrt(var+eps). kernel: (..., O) (output channels last);
+    returns (kernel, bias) in fp32, or fp64 for an fp64 kernel."""
+    acc = torch.promote_types(kernel.dtype, torch.float32)
+    g = scale.to(acc) / torch.sqrt(var.to(acc) + eps)
+    return kernel.to(acc) * g, bias.to(acc) - mean.to(acc) * g
 
 
 def fused_bottleneck_infer_plain(x, w1, b1, w2, b2, w3, b3, wd=None,

@@ -49,8 +49,8 @@ def test_int8_artifact_names_k3_and_keeps_its_operands(exported_c):
     block's weights): every fused block's kept image is among them."""
     model, _, program, _ = exported_c
     assert serve.op_counts(program) == OPS["C"]
-    images = [m._k3_cache[2].image for m in model.modules()
-              if isinstance(m, Bottleneck) and m._k3_cache is not None]
+    images = [m._k3_cache.value.image for m in model.modules()
+              if isinstance(m, Bottleneck) and m._k3_cache.value is not None]
     assert len(images) == 3
     constants = list(program.constants.values())
     for img in images:

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from dir_tpu_torch.ops import bone_splat as bs
+from dir_tpu_torch.ops import conv_epilogue
 from dir_tpu_torch.ops import fused_bottleneck as fb
 from dir_tpu_torch.ops import fused_bottleneck_int8 as q8
 from dir_tpu_torch.ops import fused_stem_bottleneck as st
@@ -1075,7 +1076,9 @@ def test_config_b_artifact_launches_the_kernels():
     """Configuration B exported on the card (symbolic batch): its graph
     names the ops, and each call of the program launches K1 2, K2 3 and K5
     4 times, from the counters in the ops' CUDA implementations; its
-    outputs equal the live model's."""
+    outputs equal the live model's on the ops an export traces (the
+    unfused composition: ``conv_epilogue.engages`` is False while
+    exporting)."""
     _cuda_or_skip()
     from dir_tpu_torch.serve import (CONFIG_B, build_flagship,
                                      export_program, make_infer, op_counts)
@@ -1096,7 +1099,9 @@ def test_config_b_artifact_launches_the_kernels():
         torch.cuda.synchronize()
     assert (f.launches - before[0], f.streamed_launches - before[1],
             bs.bone_splat.launches - before[2]) == (2, 3, 4)
-    want = make_infer(model, ml, mr)(img)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(conv_epilogue, "engages", lambda module, x: False)
+        want = make_infer(model, ml, mr)(img)
     for key, value in want["stages"][-1].items():
         # the same ops on the same tensors: measured equal
         assert torch.equal(out["stages"][-1][key], value), key

@@ -148,5 +148,5 @@ def test_training_never_reaches_a_fused_route(cfg):
     model(torch.from_numpy(_image()), tl, tr)
     assert (f.plain_runs, k3.plain_runs,
             resnet.Bottleneck.fp32_unfused_runs) == before
-    assert all(m._k3_cache is None for m in model.modules()
+    assert all(m._k3_cache.value is None for m in model.modules()
                if isinstance(m, resnet.Bottleneck))

@@ -5,11 +5,13 @@ copy it replaced, in value and gradient; which steps are graphed
 (``graphable``), and that a CPU step, a one-rank mesh, ``unroll`` and
 ``grad_accum`` run eager on every call with their phases; the graph's
 bookkeeping (warm-up, capture, replay, another signature, a replaced
-optimizer state) with a stand-in for the graph; the benchmark's
+optimizer state) with a stand-in for the graph, and a replay's drop of
+the model's kept eval operands; the benchmark's
 ``replayed_pct.train`` on a synthetic slice. On the card (``gpu``):
 eager, captured and replayed steps bit-equal to eager ones, no host
-synchronisation in a replay, a recapture after ``optimizer.load_state_dict``
-and loss dicts that later steps leave alone.
+synchronisation in a replay, a recapture after ``optimizer.load_state_dict``,
+loss dicts that later steps leave alone, and an eval forward after
+replayed steps that folds the replayed weights (``ops/conv_epilogue.py``).
 """
 
 import contextlib
@@ -23,6 +25,9 @@ from torch.profiler import ProfilerActivity, profile
 from dir_tpu_torch import serve
 from dir_tpu_torch.config import TrainConfig
 from dir_tpu_torch.models import losses
+from dir_tpu_torch.models.layers import ConvHead, Residual
+from dir_tpu_torch.models.resnet import Bottleneck, ResNetPyramid
+from dir_tpu_torch.ops import conv_epilogue
 from dir_tpu_torch.parallel.mesh import Mesh
 from dir_tpu_torch.train import steps as tsteps
 from dir_tpu_torch.train.state import create_train_state, make_optimizer
@@ -187,6 +192,19 @@ def _lr_tensors_(optimizer):
             group["lr"] = torch.tensor(float(group["lr"]))
 
 
+def _stand_in(monkeypatch):
+    """``make_train_step`` on the CPU as on one CUDA device, with the
+    stand-ins for the graph and its event."""
+    monkeypatch.setattr(tsteps, "graphable", lambda *a: True)
+    monkeypatch.setattr(tsteps, "_capturable_", _lr_tensors_)
+    monkeypatch.setattr(tsteps, "_syncs_raise", contextlib.nullcontext)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(FakeEvent, "waits", 0)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda g: contextlib.nullcontext())
+
+
 def test_graph_bookkeeping_with_a_stand_in(tiny, monkeypatch):
     """The path of each call as ``make_train_step`` picks it on one CUDA
     device, run on the CPU with a stand-in for the graph: the first call
@@ -196,14 +214,7 @@ def test_graph_bookkeeping_with_a_stand_in(tiny, monkeypatch):
     recapture), and so does a parameter moved to new memory;
     ``model.load_state_dict`` keeps it. Each replay returns its
     own copy of the losses, advances the step and waits for its end."""
-    monkeypatch.setattr(tsteps, "graphable", lambda *a: True)
-    monkeypatch.setattr(tsteps, "_capturable_", _lr_tensors_)
-    monkeypatch.setattr(tsteps, "_syncs_raise", contextlib.nullcontext)
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
-    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
-    monkeypatch.setattr(FakeEvent, "waits", 0)
-    monkeypatch.setattr(torch.cuda, "graph",
-                        lambda g: contextlib.nullcontext())
+    _stand_in(monkeypatch)
     model, cfg, ml, mr = tiny
     opt = make_optimizer(model, TrainConfig(), steps_per_epoch=100)
     state = create_train_state(model, opt)
@@ -241,6 +252,35 @@ def test_graph_bookkeeping_with_a_stand_in(tiny, monkeypatch):
     for _ in range(3):
         call(b)
     assert paths[-3:] == ["eager", "capture", "replay"]
+
+
+def test_a_replay_drops_the_kept_operands(tiny, monkeypatch):
+    """A replay updates the weights in place and moves no version, so the
+    operands an eval forward folded and kept before it
+    (``ops/conv_epilogue.py``: each site's and each block's K3 operands)
+    are stale: the replay itself drops every one, whether or not the step
+    puts the model in train mode (``model.train`` is a no-op here)."""
+    _stand_in(monkeypatch)
+    model, cfg, ml, mr = copy.deepcopy(tiny)
+    opt = make_optimizer(model, TrainConfig(), steps_per_epoch=100)
+    state = create_train_state(model, opt)
+    step = tsteps.make_train_step(model, opt, cfg, ml, mr, device="cpu")
+    batch = wire_batch(np.random.RandomState(2), 2, 64)
+    for want in (EAGER, CAPTURE):
+        state, _, phases = traced(step, state, batch)
+        assert phases == want
+    kept = conv_epilogue.kept(model)
+    sites = [m for m in model.modules()
+             if isinstance(m, (Bottleneck, ResNetPyramid, Residual,
+                               ConvHead))]
+    blocks = [m for m in sites if isinstance(m, Bottleneck)]
+    assert len(kept) == len(sites) + len(blocks) > len(sites)
+    for k in kept:
+        k.key, k.eps, k.value = [], (), "stale"
+    monkeypatch.setattr(model, "train", lambda mode=True: model)
+    state, _, phases = traced(step, state, batch)
+    assert phases == REPLAY
+    assert all(k.value is None and k.key is None for k in kept)
 
 
 def test_checkpoint_of_a_graphed_optimizer_restores_on_the_cpu(
@@ -453,3 +493,29 @@ def test_a_replaced_optimizer_state_recaptures(card):
     assert all(g["capturable"] and isinstance(g["lr"], torch.Tensor)
                for g in opt.param_groups)
     assert np.isfinite(float(losses.total_loss(loss)))
+
+
+@pytest.mark.gpu
+def test_eval_after_replayed_steps_folds_the_new_weights(card):
+    """An eval forward between train steps keeps its folded operands
+    (``ops/conv_epilogue.py``); the replays after it update the weights in
+    place and move no version, and the step's ``model.train()`` drops the
+    operands: the next eval equals that of a copy of the model, which
+    folds its weights afresh."""
+    model, opt, state, step, paths = _steps(card, 3)
+    assert paths == [EAGER, CAPTURE, REPLAY]
+    _, cfg, ml, mr, _, batches = card
+    evaluate = tsteps.make_eval_step(model, ml, mr)
+    img = np.random.RandomState(3).randn(
+        2, CARD_SIZE, CARD_SIZE, 3).astype(np.float32)
+    before = evaluate(model, img)["stages"][-1]
+    for batch in batches[:2]:
+        state, _, phases = traced(step, state, batch)
+        assert phases == REPLAY
+    got = evaluate(model, img)["stages"][-1]
+    copied = copy.deepcopy(model)
+    want = tsteps.make_eval_step(copied, ml, mr)(copied, img)["stages"][-1]
+    key = "pd_joint_xyz_left"
+    assert not torch.equal(got[key], before[key])
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
