@@ -56,6 +56,19 @@ def conv1x1_tokens(x: torch.Tensor, conv: nn.Conv1d, dtype) -> torch.Tensor:
                     conv.bias.to(dtype))
 
 
+def conv_bn_relu(module: nn.Module, kept: ce.Kept, conv: nn.Conv2d,
+                 bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """``relu(bn(conv(x)))`` in ``module.dtype``. Where
+    ``conv_epilogue.engages`` takes ``module``'s site, the eval ``bn`` is
+    folded into ``conv`` (``conv_epilogue.fold``, kept in ``kept``) and the
+    bias and the ReLU run in the pass after the conv."""
+    if ce.engages(module, x):
+        w, b = kept.get([(conv, bn)],
+                        lambda: ce.fold(conv, bn, module.dtype))
+        return ce.conv_bias_relu(x, w, b, conv.stride, conv.padding)
+    return torch.relu(bn(conv2d(x, conv, module.dtype)))
+
+
 def linear(x: torch.Tensor, lin: nn.Linear, dtype) -> torch.Tensor:
     """``lin`` applied in ``dtype``."""
     bias = None if lin.bias is None else lin.bias.to(dtype)
@@ -136,8 +149,9 @@ class Residual(nn.Module):
         self.conv3 = ConvHolder(half, out_ch, 1)
         self.skip_layer = (ConvHolder(in_ch, out_ch, 1)
                            if in_ch != out_ch else None)
-        # The folded operands of the fused eval route (_epilogue_infer)
-        self._folded = ce.Kept()
+        # The folded operands of conv1 -> bn2 and conv2 -> bn3 on the fused
+        # eval route (conv_bn_relu)
+        self._folded2, self._folded3 = ce.Kept(), ce.Kept()
 
     def forward(self, x: torch.Tensor,
                 pair: torch.Tensor | None = None) -> torch.Tensor:
@@ -148,27 +162,14 @@ class Residual(nn.Module):
         dt = self.dtype
         skip = (x if self.skip_layer is None
                 else conv2d(x, self.skip_layer.conv, dt))
+        # bn1 acts on the block's input, which the skip reads too: it has
+        # no conv before it to fold into
         out = torch.relu(self.bn1(x.to(dt)))
-        if ce.engages(self, out):
-            out = self._epilogue_infer(out)
-        else:
-            out = conv2d(out, self.conv1.conv, dt)
-            out = conv2d(torch.relu(self.bn2(out)), self.conv2.conv, dt)
-            out = torch.relu(self.bn3(out))
+        out = conv_bn_relu(self, self._folded2, self.conv1.conv, self.bn2,
+                           out)
+        out = conv_bn_relu(self, self._folded3, self.conv2.conv, self.bn3,
+                           out)
         return conv2d(out, self.conv3.conv, dt) + skip
-
-    def _epilogue_infer(self, h: torch.Tensor) -> torch.Tensor:
-        """``relu(bn3(conv2(relu(bn2(conv1(h))))))`` at inference, each BN
-        folded into the conv before it (its bias too) and the bias and ReLU
-        in the pass after it. ``bn1`` acts on the block's input, which the
-        skip reads too: it has no conv before it to fold into."""
-        pairs = ((self.conv1.conv, self.bn2), (self.conv2.conv, self.bn3))
-        (w1, b1), (w2, b2) = self._folded.get(
-            pairs, lambda: [ce.fold(conv, bn, self.dtype)
-                            for conv, bn in pairs])
-        out = ce.conv_bias_relu(h, w1, b1)
-        return ce.conv_bias_relu(out, w2, b2, 1, 1)
-
 
     def _quant_infer(self, x: torch.Tensor) -> torch.Tensor:
         """Int8 execution on the block's own parameters, on the NHWC view of
@@ -256,19 +257,13 @@ class ConvHead(nn.Sequential):
         self.quant_second = quant_second
         names = ("conv1_in",) + (("conv2_in",) if quant_second else ())
         self.quant_stats = ActAmax(names) if quant_eval else None
-        # The folded operands of the fused eval route
+        # The folded operands of the fused eval route (conv_bn_relu)
         self._folded = ce.Kept()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         if not (self.quant_eval and not self.training):
-            x = x.to(dt)
-            if ce.engages(self, x):
-                w, b = self._folded.get(
-                    [(self[0], self[1])], lambda: ce.fold(self[0], self[1], dt))
-                x = ce.conv_bias_relu(x, w, b, 1, 1)
-            else:
-                x = torch.relu(self[1](conv2d(x, self[0], dt)))
+            x = conv_bn_relu(self, self._folded, self[0], self[1], x.to(dt))
             return conv2d(x, self[3], dt)
         y = torch.relu(module_quant_conv(
             self.quant_stats, "conv1", x.to(dt).permute(0, 2, 3, 1), self[0],

@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dir_tpu_torch.models.layers import BatchNorm2d, conv2d
+from dir_tpu_torch.models.layers import BatchNorm2d, conv2d, conv_bn_relu
 from dir_tpu_torch.ops import conv_epilogue as ce
 from dir_tpu_torch.ops.fused_bottleneck import fold_bn, fused_bottleneck_infer
 from dir_tpu_torch.ops import fused_bottleneck_int8 as q8
@@ -82,21 +82,28 @@ class Bottleneck(nn.Module):
         # The folded operands of the fused eval route (_epilogue_infer)
         self._folded = ce.Kept()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # The guard of the JAX package: not training, stride 1, >= 128
-        # input channels, and >= 4096 spatial positions (layer1_1, layer1_2)
-        # or, with fused_l2_bands, >= 1024 (layer2_1..3, through bands=N).
-        # On the card the kernels take bf16 activations only; a block of
-        # another dtype runs unfused (kernel_takes).
+    def _fused_bands(self, x: torch.Tensor, l2_bands: int) -> int | None:
+        """The guard of the JAX package's fused blocks (K1/K2, or K3 with
+        its ``l2_bands``): stride 1, >= 128 input channels, and >= 4096
+        spatial positions (layer1_1, layer1_2: bands 0) or, with
+        ``l2_bands``, >= 1024 (layer2_1..3: bands ``l2_bands``). None where
+        it does not take the block, and where the kernels do not take its
+        activations (:func:`kernel_takes`; on the card bf16 only), which
+        ``fp32_unfused_runs`` counts: the block then runs unfused."""
         spatial = x.shape[2] * x.shape[3]
-        if (self.fused_eval and not self.training and self.stride == 1
-                and x.shape[1] >= 128
-                and (spatial >= 4096
-                     or (spatial >= 1024 and self.fused_l2_bands))):
-            if kernel_takes(x, self.dtype):
-                return self._fused_infer(
-                    x, bands=0 if spatial >= 4096 else self.fused_l2_bands)
+        if (self.stride != 1 or x.shape[1] < 128
+                or not (spatial >= 4096 or (spatial >= 1024 and l2_bands))):
+            return None
+        if not kernel_takes(x, self.dtype):
             Bottleneck.fp32_unfused_runs += 1
+            return None
+        return 0 if spatial >= 4096 else l2_bands
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bands = (self._fused_bands(x, self.fused_l2_bands)
+                 if self.fused_eval and not self.training else None)
+        if bands is not None:
+            return self._fused_infer(x, bands)
         if self.quant_eval and not self.training:
             return self._quant_infer(x)
         if ce.engages(self, x):
@@ -210,21 +217,16 @@ class Bottleneck(nn.Module):
             return module_act_scale(self.quant_stats, name, v,
                                     self.quant_static)
 
-        # The fused int8 kernel: static scales only (a dynamic scale is a
-        # reduction over the whole batch), never while calibrating (the
-        # unfused route records the maxes), stride 1, >= 128 input channels;
-        # layer1 at >= 4096 positions, layer2 through quant_fused_l2_bands.
-        # It runs the op on the block's kept operands: K3 on the card, its
-        # plain version on the CPU. A block whose activations the kernel
-        # does not take (kernel_takes) runs the unfused int8 route.
-        spatial = x.shape[2] * x.shape[3]
-        fused = (self.quant_fused and self.quant_static and self.stride == 1
-                 and x.shape[1] >= 128 and not self.quant_stats.calibrating
-                 and (spatial >= 4096
-                      or (spatial >= 1024 and self.quant_fused_l2_bands)))
-        if fused and not kernel_takes(xn, dt):
-            Bottleneck.fp32_unfused_runs += 1
-        elif fused:
+        # The fused int8 kernel where the fused guard takes the block:
+        # static scales only (a dynamic scale is a reduction over the whole
+        # batch), never while calibrating (the unfused route records the
+        # maxes); layer2 through quant_fused_l2_bands. It runs the op on the
+        # block's kept operands: K3 on the card, its plain version on the
+        # CPU. Elsewhere the block runs the unfused int8 route.
+        if (self.quant_fused and self.quant_static
+                and not self.quant_stats.calibrating
+                and self._fused_bands(x, self.quant_fused_l2_bands)
+                is not None):
             return q8.call(xn.to(dt), self.k3_operands()).permute(0, 3, 1, 2)
 
         w1, b1, w2, b2, w3, b3, wd, bd = self.folded_weights()
@@ -345,7 +347,7 @@ class ResNetPyramid(nn.Module):
         self.conv1 = (nn.Conv2d(3, 64, 7, 2, 3, bias=False) if stem == "conv7"
                       else nn.Conv2d(12, 64, 4, 1, 0, bias=False))
         self.bn1 = BatchNorm2d(64)
-        # The stem's folded operands (conv_epilogue's fused eval route)
+        # The stem's folded operands on the fused eval route (conv_bn_relu)
         self._folded = ce.Kept()
         inplanes = 64
         for stage, (blocks, planes) in enumerate(
@@ -381,15 +383,8 @@ class ResNetPyramid(nn.Module):
             if self.stem == "s2d":
                 x = space_to_depth(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
                 x = F.pad(x, (2, 1, 2, 1))
-            x = x.contiguous(memory_format=torch.channels_last)
-            if ce.engages(self, x):
-                w, b = self._folded.get(
-                    [(self.conv1, self.bn1)],
-                    lambda: ce.fold(self.conv1, self.bn1, self.dtype))
-                x = ce.conv_bias_relu(x, w, b, self.conv1.stride,
-                                      self.conv1.padding)
-            else:
-                x = torch.relu(self.bn1(conv2d(x, self.conv1, self.dtype)))
+            x = conv_bn_relu(self, self._folded, self.conv1, self.bn1,
+                             x.contiguous(memory_format=torch.channels_last))
         x = F.max_pool2d(x, 3, 2, 1)
         x = x.contiguous(memory_format=torch.channels_last)
         feats = []

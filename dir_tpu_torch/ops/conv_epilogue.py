@@ -82,17 +82,13 @@ class Kept:
     (:func:`sources`) was replaced, moved or changed in place (its
     identity, storage or version), or a BN's eps changed; so
     ``load_state_dict``, an optimizer step and ``.to()`` are seen. A write
-    through ``.data`` bypasses the version, as everywhere in autograd, and
-    so does a CUDA graph's replay: the graphed train step drops every
-    :class:`Kept` of its model (:func:`kept`) after each replay. Operands
-    made from inference tensors keep no version and are not kept."""
+    through ``.data`` bypasses the version, as everywhere in autograd.
+    Operands made from inference tensors keep no version and are not
+    kept."""
 
     __slots__ = ("key", "eps", "value")
 
     def __init__(self):
-        self.clear()
-
-    def clear(self) -> None:
         self.key = self.eps = self.value = None
 
     def get(self, pairs, make, extra=()):
@@ -112,12 +108,6 @@ class Kept:
         self.key, self.eps, self.value = (
             (key, eps, value) if key is not None else (None, None, None))
         return value
-
-
-def kept(model: nn.Module) -> list:
-    """Every :class:`Kept` that a module of ``model`` holds."""
-    return [v for m in model.modules() for v in vars(m).values()
-            if isinstance(v, Kept)]
 
 
 def bias_add_relu_plain(y: torch.Tensor, bias: torch.Tensor,

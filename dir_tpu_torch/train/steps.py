@@ -45,7 +45,6 @@ from dir_tpu_torch.device import (deterministic, float_constant, no_tf32,
                                   resolve_device)
 from dir_tpu_torch.mano.assets import ManoModel
 from dir_tpu_torch.models.losses import dir_losses, total_loss
-from dir_tpu_torch.ops import conv_epilogue
 from dir_tpu_torch.ops.bone_splat import bone_splat
 from dir_tpu_torch.parallel.mesh import Mesh, average_gradients, replicate
 from dir_tpu_torch.train.state import TrainState
@@ -133,8 +132,8 @@ class _Captured(NamedTuple):
     the loss dict's keys and the losses it stacks, the K5 launches of a
     replay, the gradients it writes, where the caller keeps each tensor it
     reads or writes (:meth:`_GraphedStep.slots`), the parameters with
-    their data pointers, and the model's kept eval operands
-    (``conv_epilogue.kept``), which a replay drops."""
+    their data pointers, and the model's parameters and buffers, which a
+    replay marks as written."""
     signature: tuple
     graph: torch.cuda.CUDAGraph
     inputs: dict
@@ -145,7 +144,7 @@ class _Captured(NamedTuple):
     slots: list
     params: list
     pointers: list
-    kept: list
+    written: list
 
 
 class _GraphedStep:
@@ -246,7 +245,7 @@ class _GraphedStep:
                 sig, graph, inputs, tuple(loss_dict), losses, launches,
                 [(p, p.grad) for p in params if p.grad is not None],
                 self.slots(), params, [p.data_ptr() for p in params],
-                conv_epilogue.kept(self.model))
+                params + list(self.model.buffers()))
         self.grads_stale = False
         return self.replay(c, state)
 
@@ -254,14 +253,13 @@ class _GraphedStep:
         with span("train.replay"):
             c.graph.replay()
             losses = c.losses.clone()
-            # the call returns once its replay has run on the device
             self.done.record()
+            # the replay wrote these where autograd does not see it: their
+            # versions move, as an in-place op's would, while it runs
+            torch.autograd.graph.increment_version(c.written)
+            # the call returns once its replay has run on the device
             self.done.synchronize()
         bone_splat.launches += c.launches
-        # the replay updated the weights in place without moving their
-        # versions: operands folded from them before are stale
-        for k in c.kept:
-            k.clear()
         if self.grads_stale:
             for p, g in c.grads:
                 p.grad = g
@@ -325,9 +323,9 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     capture raises on a host synchronisation. A replayed call returns once
     its replay has run (it waits on an event recorded after it): its losses
     and update are done, and none of its work is left on the device. Each
-    replay adds the K5 launches it runs to ``bone_splat.launches`` and drops
-    the model's kept eval operands (``ops/conv_epilogue.py``), which its
-    in-place update made stale. Spans:
+    replay adds the K5 launches it runs to ``bone_splat.launches`` and
+    moves the version of each parameter and buffer of the model, as an
+    in-place update does. Spans:
     a replayed step records ``train.upload`` (the copy and the lr) and
     ``train.replay`` (the replay and its wait), a capturing one
     ``train.upload``, ``train.capture`` and ``train.replay``, an eager one

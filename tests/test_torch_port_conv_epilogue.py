@@ -189,14 +189,22 @@ def _eps(block):
     block.downsample[1].eps = 1e-2
 
 
+def _marked(block):
+    """A write that moves no version (as a CUDA graph's replay writes),
+    then marked as the graphed train step marks its replay's writes."""
+    block.conv2.weight.data.mul_(-1.0)
+    torch.autograd.graph.increment_version(
+        [t for conv, bn in block._pairs() for t in ce.sources(conv, bn)])
+
+
 @pytest.mark.parametrize("change", [_load_state_dict, _in_place, _replaced,
-                                    _eps],
+                                    _eps, _marked],
                          ids=["load_state_dict", "in_place", "replaced",
-                              "eps"])
+                              "eps", "marked"])
 def test_operands_made_anew_after(change):
-    """A load, an in-place update, a replaced parameter and an eps change
-    each make the folded operands anew, and the fused route then equals
-    the unfused one on the changed block."""
+    """A load, an in-place update, a replaced parameter, an eps change and
+    a version mark each make the folded operands anew, and the fused route
+    then equals the unfused one on the changed block."""
     block, x = _block(), rand((2, 24, 5, 5), 15)
     before = _fused(block, x)
     kept = block._folded.value
@@ -286,8 +294,9 @@ def test_cpu_forward_never_fuses(mode):
         model(img, ml, mr)
     assert (ce.conv_bias_relu.fused_runs, ce.bias_add_relu_.launches,
             ce.bias_add_relu_.plain_runs) == counters
-    assert all(m._folded.value is None for m in model.modules()
-               if hasattr(m, "_folded"))
+    kept = [v for m in model.modules() for v in vars(m).values()
+            if isinstance(v, ce.Kept)]
+    assert kept and all(k.value is None for k in kept)
 
 
 def test_plain_epilogue_rounds_once():

@@ -5,8 +5,8 @@ copy it replaced, in value and gradient; which steps are graphed
 (``graphable``), and that a CPU step, a one-rank mesh, ``unroll`` and
 ``grad_accum`` run eager on every call with their phases; the graph's
 bookkeeping (warm-up, capture, replay, another signature, a replaced
-optimizer state) with a stand-in for the graph, and a replay's drop of
-the model's kept eval operands; the benchmark's
+optimizer state) with a stand-in for the graph, and a replay's mark on
+the versions of what it writes; the benchmark's
 ``replayed_pct.train`` on a synthetic slice. On the card (``gpu``):
 eager, captured and replayed steps bit-equal to eager ones, no host
 synchronisation in a replay, a recapture after ``optimizer.load_state_dict``,
@@ -25,8 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 from dir_tpu_torch import serve
 from dir_tpu_torch.config import TrainConfig
 from dir_tpu_torch.models import losses
-from dir_tpu_torch.models.layers import ConvHead, Residual
-from dir_tpu_torch.models.resnet import Bottleneck, ResNetPyramid
+from dir_tpu_torch.models.resnet import Bottleneck
 from dir_tpu_torch.ops import conv_epilogue
 from dir_tpu_torch.parallel.mesh import Mesh
 from dir_tpu_torch.train import steps as tsteps
@@ -254,12 +253,12 @@ def test_graph_bookkeeping_with_a_stand_in(tiny, monkeypatch):
     assert paths[-3:] == ["eager", "capture", "replay"]
 
 
-def test_a_replay_drops_the_kept_operands(tiny, monkeypatch):
-    """A replay updates the weights in place and moves no version, so the
-    operands an eval forward folded and kept before it
-    (``ops/conv_epilogue.py``: each site's and each block's K3 operands)
-    are stale: the replay itself drops every one, whether or not the step
-    puts the model in train mode (``model.train`` is a no-op here)."""
+def test_a_replay_marks_what_it_writes(tiny, monkeypatch):
+    """A replay writes the parameters and the BN buffers where autograd
+    does not see it; it moves the version of every parameter and buffer of
+    the model, as an in-place op would, so operands kept from them before
+    it (``ops/conv_epilogue.py:Kept``) are made anew. The stand-in's
+    replay runs nothing: only the mark moves a version."""
     _stand_in(monkeypatch)
     model, cfg, ml, mr = copy.deepcopy(tiny)
     opt = make_optimizer(model, TrainConfig(), steps_per_epoch=100)
@@ -269,18 +268,17 @@ def test_a_replay_drops_the_kept_operands(tiny, monkeypatch):
     for want in (EAGER, CAPTURE):
         state, _, phases = traced(step, state, batch)
         assert phases == want
-    kept = conv_epilogue.kept(model)
-    sites = [m for m in model.modules()
-             if isinstance(m, (Bottleneck, ResNetPyramid, Residual,
-                               ConvHead))]
-    blocks = [m for m in sites if isinstance(m, Bottleneck)]
-    assert len(kept) == len(sites) + len(blocks) > len(sites)
-    for k in kept:
-        k.key, k.eps, k.value = [], (), "stale"
-    monkeypatch.setattr(model, "train", lambda mode=True: model)
+    block = next(m for m in model.modules() if isinstance(m, Bottleneck))
+    pairs = [(block.conv1, block.bn1)]
+    kept = conv_epilogue.Kept()
+    first = kept.get(pairs, object)
+    assert kept.get(pairs, object) is first
+    tensors = [*model.parameters(), *model.buffers()]
+    versions = [t._version for t in tensors]
     state, _, phases = traced(step, state, batch)
     assert phases == REPLAY
-    assert all(k.value is None and k.key is None for k in kept)
+    assert all(t._version > v for t, v in zip(tensors, versions))
+    assert kept.get(pairs, object) is not first
 
 
 def test_checkpoint_of_a_graphed_optimizer_restores_on_the_cpu(
@@ -499,9 +497,9 @@ def test_a_replaced_optimizer_state_recaptures(card):
 def test_eval_after_replayed_steps_folds_the_new_weights(card):
     """An eval forward between train steps keeps its folded operands
     (``ops/conv_epilogue.py``); the replays after it update the weights in
-    place and move no version, and the step's ``model.train()`` drops the
-    operands: the next eval equals that of a copy of the model, which
-    folds its weights afresh."""
+    place and mark their versions, so the next eval folds the new weights:
+    it equals that of a copy of the model, which folds its weights
+    afresh."""
     model, opt, state, step, paths = _steps(card, 3)
     assert paths == [EAGER, CAPTURE, REPLAY]
     _, cfg, ml, mr, _, batches = card
